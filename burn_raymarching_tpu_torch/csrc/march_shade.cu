@@ -28,53 +28,25 @@
 #define MS_CHUNK 1024
 #define MS_T_MAX 1e4f
 
-// Copies columns [c0, c0+len) of the [5, m] table into shared memory. Every
-// thread of the block must call it.
-__device__ __forceinline__ void stage_chunk(const float* __restrict__ prim,
-                                            int m, int c0, int len,
-                                            float (*tab)[MS_CHUNK]) {
-  __syncthreads();
-  for (int i = threadIdx.x; i < 5 * len; i += blockDim.x) {
-    const int row = i / len;
-    const int col = i - row * len;
-    tab[row][col] = prim[row * m + c0 + col];
+// Logit of column j for K1: the k*r fold of _soft_min_rows.
+struct FoldVal {
+  float px, py, pz, psq, k;
+  __device__ __forceinline__ float operator()(const float* tab, int cap,
+                                              int j) const {
+    const float q = fmaxf(expanded_q(px, py, pz, psq, tab[j], tab[cap + j],
+                                     tab[2 * cap + j], tab[4 * cap + j]),
+                          1e-6f);
+    return sqrtf(q) * (-k) + tab[3 * cap + j] * k;
   }
-  __syncthreads();
-}
-
-__device__ __forceinline__ float fold_val(float px, float py, float pz,
-                                          float psq, float (*tab)[MS_CHUNK],
-                                          int j, float k) {
-  const float q = fmaxf(
-      expanded_q(px, py, pz, psq, tab[0][j], tab[1][j], tab[2][j], tab[4][j]),
-      1e-6f);
-  return sqrtf(q) * (-k) + tab[3][j] * k;
-}
+};
 
 // Soft-min of one point per warp against the whole table. Block-uniform
 // control flow: every thread of the block calls it the same number of times.
 __device__ float softmin_point(float px, float py, float pz,
                                const float* __restrict__ prim, int m, float k,
-                               float (*tab)[MS_CHUNK], bool resident,
-                               int lane) {
-  const float psq = sq_norm3(px, py, pz);
-  float mx = -INFINITY;
-  for (int c0 = 0; c0 < m; c0 += MS_CHUNK) {
-    const int len = min(MS_CHUNK, m - c0);
-    if (!resident) stage_chunk(prim, m, c0, len, tab);
-    for (int j = lane; j < len; j += 32)
-      mx = fmaxf(mx, fold_val(px, py, pz, psq, tab, j, k));
-  }
-  mx = warp_max(mx);
-  float s = 0.0f;
-  for (int c0 = 0; c0 < m; c0 += MS_CHUNK) {
-    const int len = min(MS_CHUNK, m - c0);
-    if (!resident) stage_chunk(prim, m, c0, len, tab);
-    for (int j = lane; j < len; j += 32)
-      s += expf(fold_val(px, py, pz, psq, tab, j, k) - mx);
-  }
-  s = warp_sum(s);
-  return (logf(fmaxf(s, 1e-8f)) + mx) / (-k);
+                               float* tab, bool resident, int lane) {
+  const FoldVal val{px, py, pz, sq_norm3(px, py, pz), k};
+  return softmin_two_pass(val, prim, m, tab, MS_CHUNK, resident, lane, k);
 }
 
 __global__ void __launch_bounds__(MS_WARPS * 32)
@@ -83,14 +55,14 @@ march_shade_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
                    const float* __restrict__ prim, int n, int m, float k,
                    int num_steps, float normal_eps, float* __restrict__ t_out,
                    float* __restrict__ n_out) {
-  __shared__ float tab[5][MS_CHUNK];
+  __shared__ float tab[5 * MS_CHUNK];
   const int lane = threadIdx.x & 31;
   const int ray = blockIdx.x * MS_WARPS + (threadIdx.x >> 5);
   // Tail warps march a copy of the last ray so block barriers stay uniform;
   // they store nothing.
   const int r = min(ray, n - 1);
   const bool resident = m <= MS_CHUNK;
-  if (resident) stage_chunk(prim, m, 0, m, tab);
+  if (resident) stage_table(prim, m, 0, m, tab, MS_CHUNK);
 
   const float ox = ro[3 * r], oy = ro[3 * r + 1], oz = ro[3 * r + 2];
   const float dx = rd[3 * r], dy = rd[3 * r + 1], dz = rd[3 * r + 2];

@@ -1,5 +1,5 @@
 """Ray dataset with foreground-boosted importance sampling (port of
-burn_raymarching_tpu/data/dataset.py; ``tile_fg`` is not ported).
+burn_raymarching_tpu/data/dataset.py).
 
 A batch is floor(batch * uniform_ratio) uniform picks over all pixels plus
 (batch - that) picks uniform over the fg set, with the fg-boost count capped
@@ -74,6 +74,21 @@ class RayDataset:
                                    self.fg_indices, self.num_fg, batch_size,
                                    uniform_ratio)
         return gather_batch(self.packed, idx)
+
+    def tile_fg(self, tile: int) -> tuple[torch.Tensor, int]:
+        """Tile-granular fg split for block sampling: a tile is foreground
+        if ANY of its pixels is → (fg tile indices padded to the tile count
+        [int32], n_fg_tiles). Needs a Morton-ordered dataset, so each run of
+        ``tile`` consecutive pixels is a compact block of one view."""
+        if self.num_total_pixels % tile:
+            raise ValueError(f"pixels ({self.num_total_pixels}) must divide "
+                             f"by tile ({tile})")
+        px = self.targets.cpu().numpy().sum(axis=1)
+        any_fg = (px > self.fg_threshold).reshape(-1, tile).any(axis=1)
+        fg = np.nonzero(any_fg)[0].astype(np.int32)
+        padded = np.zeros((any_fg.shape[0],), np.int32)
+        padded[: fg.shape[0]] = fg
+        return torch.as_tensor(padded, device=self.device), int(fg.shape[0])
 
 
 def gather_batch(packed: torch.Tensor, idx: torch.Tensor):

@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -61,6 +62,15 @@ def load_library(name: str) -> ctypes.CDLL:
         BUILD_SECONDS[name] = time.perf_counter() - t0
         BUILD_LOG[name] = proc.stderr
     return ctypes.CDLL(lib_path)
+
+
+def build_all(names) -> None:
+    """Build (if needed) and load several libraries, one nvcc per source,
+    all started together."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        for future in [pool.submit(load_library, n) for n in names]:
+            future.result()
 
 
 def bind(lib: ctypes.CDLL, fn: str, argtypes: list, restype=ctypes.c_int):

@@ -9,6 +9,13 @@ Usage:
   python -m burn_raymarching_tpu_torch.tools.train_cli [--cameras data/cameras.json]
       [--stages 5] [--steps 700] [--batch 16384] [--resume] [--no-pallas]
       [--device cuda]
+
+The large-scene recipe (BASELINE config 4; see tools/run_c5.py):
+  ... --width 512 --height 512 --init-layout cloud --init-n 5120
+      --init-points data/points.json --turbo --cull 2048 --sample-mode tile
+      --cluster-repulsion --wd-mode decoupled --lr 0.02
+      --lr-scales 0.001,1,0.1,0.5 --smooth-k 128 --sharp 40,60
+      --stages 3 --steps 1000 --merge-cell 0.04
 """
 
 from __future__ import annotations
@@ -145,21 +152,24 @@ def make_parser() -> argparse.ArgumentParser:
         metavar="CENTERS,COLORS,RADII,LIGHT")
     add("--coverage", default="", choices=["", "sigmoid", "gaussian"])
     add("--merge-cell", dest="merge_cell", type=float, default=0.0)
-    # Flags of the JAX CLI whose features are not ported: accepted so the
-    # command lines match, rejected with NotImplementedError when used.
-    add("--turbo", action="store_true")
+    add("--turbo", action="store_true",
+        help="warm-start march from a per-pixel t cache")
     add("--warm-steps", dest="warm_steps", type=int, default=0)
-    add("--cull", type=int, default=0, metavar="K")
+    add("--cull", type=int, default=0, metavar="K",
+        help="coherent-tile culling with a top-K budget (Morton order)")
     add("--sample-mode", dest="sample_mode", default=None,
         choices=["pixel", "tile"])
-    add("--cull-hier", dest="cull_hier", type=int, default=0)
+    add("--cull-hier", dest="cull_hier", type=int, default=0,
+        help="two-level culling with this cluster budget")
+    add("--cluster-repulsion", dest="cluster_repulsion", action="store_true")
+    add("--rep-far-field", dest="rep_far_field", default="",
+        choices=["", "member", "monopole"])
+    # Flags of the JAX CLI whose features are not ported: accepted so the
+    # command lines match, rejected with NotImplementedError when used.
     add("--stage-guard", dest="stage_guard", action="store_true")
     add("--stage-guard-retries", dest="stage_guard_retries", type=int,
         default=2)
     add("--best-of", dest="best_of", type=int, default=1)
-    add("--cluster-repulsion", dest="cluster_repulsion", action="store_true")
-    add("--rep-far-field", dest="rep_far_field", default="",
-        choices=["", "member", "monopole"])
     add("--coverage-stages", dest="coverage_stages", default="")
     add("--mask-sharp-stages", dest="mask_sharp_stages", default="")
     add("--ss-stages", dest="ss_stages", default="")

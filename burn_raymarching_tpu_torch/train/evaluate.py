@@ -38,12 +38,17 @@ def evaluate_views(
     chunk: int = 4096,
     softmax_sharpness: float = 10.0,
     mask_sharpness: float = 15.0,
+    cull=None,
+    clusters=None,
     mask_pixel_mult: float = 0.0,
     pixel_angle: float = 0.0,
     coverage_mode: str = "sigmoid",
 ) -> dict:
     """Render every camera with the training forward model and compare →
-    {"per_view": [psnr...], "mean": float, "min": float}."""
+    {"per_view": [psnr...], "mean": float, "min": float}.
+
+    ``cull`` (render.preview.CullRender) routes rendering through the
+    per-tile top-K path, in Morton pixel order."""
     dev = params.centers.device
     per_view = []
     for cam, tgt in zip(cameras, targets):
@@ -54,6 +59,8 @@ def evaluate_views(
                            march_normal_fn=march_normal_fn,
                            softmax_sharpness=softmax_sharpness,
                            mask_sharpness=mask_sharpness,
+                           cull=cull, clusters=clusters,
+                           order_wh=(width, height),
                            mask_pixel_mult=mask_pixel_mult,
                            pixel_angle=pixel_angle,
                            coverage_mode=coverage_mode)

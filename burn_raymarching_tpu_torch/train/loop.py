@@ -4,18 +4,26 @@
 smooth_k 5→32 and uniform_ratio 0.8→0.4 anneals, LR 0.05·0.6^stage with a
 ×0.2 mid-stage drop, per-stage preview PNGs, prune/split between stages,
 stage checkpoints (the JAX package's .npz keys) with resume, final
-scene.json export.
+scene.json export. The large-scene path (configs 4-5) adds Morton dataset
+order, tile-block sampling, culled steps, the warm-start t cache (prefilled
+by a full cold march at every stage start) and the two-level cluster
+repulsion, whose cluster table is rebuilt once per stage from the
+stage-start centers.
 
 The step loop is a plain per-step Python loop: the JAX package's
 ``steps_per_call`` / ``scan_unroll`` exist only to hide TPU dispatch and
-have no meaning here. The loss is read back to the host only at the 100-step
-log cadence. The kernels are used when ``use_pallas`` is set and the
-dataset lives on a CUDA device. Features outside the ported slice raise
+have no meaning here. The JAX package rebuilds the repulsion's frozen
+tables (train/loss.RepulsionStatic) once per scan chunk of 100 steps; this
+loop rebuilds them every 100 steps, before steps 1, 101, 201 and so on of
+each stage. The loss is read back to the host only at the 100-step log
+cadence. The kernels are used when ``use_pallas`` is set and the dataset
+lives on a CUDA device. Features outside the ported slices raise
 ``NotImplementedError`` naming their config field.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import time
 from typing import Callable, Optional
@@ -23,8 +31,6 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from burn_raymarching_tpu.utils.metrics import MetricsLogger
-from burn_raymarching_tpu.utils.padding import bucket_size
 from burn_raymarching_tpu_torch.config import TrainConfig
 from burn_raymarching_tpu_torch.data.camera import create_camera_rays
 from burn_raymarching_tpu_torch.data.dataset import RayDataset
@@ -38,6 +44,7 @@ from burn_raymarching_tpu_torch.data.scene_io import (
 )
 from burn_raymarching_tpu_torch.models.scene import (
     SceneParams,
+    activate,
     init_scene_params,
     init_scene_params_cloud,
     pad_params,
@@ -45,20 +52,42 @@ from burn_raymarching_tpu_torch.models.scene import (
     params_to_numpy,
     unpad_params,
 )
+from burn_raymarching_tpu_torch.ops.cuda.culled_march_kernel import (
+    culled_march_normals,
+)
 from burn_raymarching_tpu_torch.ops.cuda.march_shade_kernel import (
     march_shade,
 )
-from burn_raymarching_tpu_torch.render.preview import render_tiled
+from burn_raymarching_tpu_torch.ops.cuda.repulsion_kernel import (
+    cluster_repulsion_fused,
+)
+from burn_raymarching_tpu_torch.ops.culling import (
+    PrimitiveClusters,
+    build_clusters,
+)
+from burn_raymarching_tpu_torch.render.culled import culled_march_normals_xla
+from burn_raymarching_tpu_torch.render.preview import CullRender, render_tiled
 from burn_raymarching_tpu_torch.train.density import prune_and_split
+from burn_raymarching_tpu_torch.train.loss import build_repulsion_static
 from burn_raymarching_tpu_torch.train.optimizer import (
     anneal_for_step,
     make_optimizer,
     set_group_lrs,
 )
 from burn_raymarching_tpu_torch.train.step_body import (
+    culled_tables,
     lr_scale_tree,
     make_device_step,
 )
+from burn_raymarching_tpu_torch.utils import (
+    MetricsLogger,
+    bucket_size,
+    multi_view_morton_permutation,
+)
+
+# Steps between rebuilds of the repulsion's frozen tables (the JAX
+# package's default scan chunk).
+REP_STATIC_REFRESH = 100
 
 
 def unported_features(cfg: TrainConfig) -> list[str]:
@@ -66,12 +95,6 @@ def unported_features(cfg: TrainConfig) -> list[str]:
     not implement."""
     rc = cfg.render
     checks = [
-        (cfg.warm_start, "warm_start (--turbo)"),
-        (cfg.use_culling, "use_culling (--cull)"),
-        (cfg.cull_hierarchical, "cull_hierarchical (--cull-hier)"),
-        (cfg.sample_mode != "pixel", "sample_mode (--sample-mode tile)"),
-        (cfg.dataset_order != "raster", "dataset_order"),
-        (cfg.cluster_repulsion, "cluster_repulsion (--cluster-repulsion)"),
         (cfg.stage_guard, "stage_guard (--stage-guard)"),
         (rc.supersample > 1, "render.supersample > 1"),
         (rc.mask_pixel_mult > 0.0, "render.mask_pixel_mult (--mask-px)"),
@@ -85,17 +108,19 @@ def unported_features(cfg: TrainConfig) -> list[str]:
          "lr_scale_centers_stages (--lr-centers-stages)"),
         (cfg.density.split_mode != "reference",
          "density.split_mode (--split-mode residual)"),
-        (bool(cfg.init_points), "init_points (--init-points)"),
     ]
     return [name for bad, name in checks if bad]
 
 
 def build_dataset(cfg: TrainConfig, device: torch.device | str = "cpu"
                   ) -> RayDataset:
-    """cameras.json + target images → one flat ray dataset on ``device``."""
-    if cfg.dataset_order != "raster":
-        raise NotImplementedError(f"dataset_order={cfg.dataset_order!r} is "
-                                  "not ported")
+    """cameras.json + target images → one flat ray dataset on ``device``.
+
+    dataset_order="morton" stores each view's rays in Z-order so that sorted
+    batch indices form compact pixel blocks, the coherence the culled step
+    needs; sampling and loss semantics are unchanged."""
+    if cfg.dataset_order not in ("raster", "morton"):
+        raise ValueError(f"unknown dataset_order {cfg.dataset_order!r}")
     cams = load_cameras(cfg.cameras_json)
     ro_list, rd_list, tgt_list = [], [], []
     for cam in cams:
@@ -104,9 +129,12 @@ def build_dataset(cfg: TrainConfig, device: torch.device | str = "cpu"
         ro_list.append(ro.numpy())
         rd_list.append(rd.numpy())
         tgt_list.append(load_image_as_array(cam["file"]))
-    return RayDataset(np.concatenate(ro_list), np.concatenate(rd_list),
-                      np.concatenate(tgt_list),
-                      fg_threshold=cfg.fg_pixel_threshold, device=device)
+    ro, rd, tgt = (np.concatenate(x) for x in (ro_list, rd_list, tgt_list))
+    if cfg.dataset_order == "morton":
+        perm = multi_view_morton_permutation(cfg.width, cfg.height, len(cams))
+        ro, rd, tgt = ro[perm], rd[perm], tgt[perm]
+    return RayDataset(ro, rd, tgt, fg_threshold=cfg.fg_pixel_threshold,
+                      device=device)
 
 
 def split_key(key: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -134,27 +162,74 @@ class Trainer:
         self.dataset = dataset
         self.device = dataset.device
         self.log = log
-        self.march_normal_fn = self._default_march()
+        self.march_normal_fn = None
+        self.culled_march_normal_fn = None
+        self.repulsion_fn = None
+        if cfg.use_pallas and self.device.type == "cuda":
+            # The hand kernels: K1 (dense march + normals), K3 (culled
+            # march + normals), K4 (cluster repulsion); K2 is picked by the
+            # step body. None = the plain versions.
+            self.march_normal_fn = march_shade
+            self.culled_march_normal_fn = culled_march_normals
+            self.repulsion_fn = cluster_repulsion_fused
+        self.warm = self._warm_gate()
+        if cfg.sample_mode == "tile":
+            if not cfg.use_culling or cfg.dataset_order != "morton":
+                raise ValueError('sample_mode="tile" requires use_culling '
+                                 'and dataset_order="morton"')
+            if cfg.batch_size % cfg.cull_tile:
+                raise ValueError("batch_size must divide by cull_tile for "
+                                 'sample_mode="tile"')
+            self._sample_fg = dataset.tile_fg(cfg.cull_tile)
+        else:
+            self._sample_fg = (dataset.fg_indices, dataset.num_fg)
         self.lr_scales = lr_scale_tree(cfg)
         self.step_fn = make_device_step(
-            cfg, march_normal_fn=self.march_normal_fn, batch=cfg.batch_size)
+            cfg, march_normal_fn=self.march_normal_fn, batch=cfg.batch_size,
+            culled_march_fn=self.culled_march_normal_fn,
+            repulsion_fn=self.repulsion_fn, warm=self.warm)
         self.loss_history: list[float] = []
         self.metrics = MetricsLogger(cfg.metrics_jsonl)
+        self.t_cache = None
+        if self.warm:
+            self.t_cache = torch.zeros((dataset.num_total_pixels,),
+                                       dtype=torch.float32,
+                                       device=self.device)
 
-    def _default_march(self):
-        """K1 (march + normals) when use_pallas is set on a CUDA device; the
-        plain march otherwise (None = scene_forward's own march)."""
-        if self.cfg.use_pallas and self.device.type == "cuda":
-            return march_shade
-        return None
+    def _warm_gate(self) -> bool:
+        """Warm start needs a march that takes t_init: the culled path
+        always has one (K3 or its plain version), the dense path needs K1."""
+        if not self.cfg.warm_start:
+            return False
+        return self.cfg.use_culling or self.march_normal_fn is not None
+
+    def _build_cluster_table(self, padded: SceneParams, mask: torch.Tensor
+                             ) -> Optional[PrimitiveClusters]:
+        """Morton cluster membership for hierarchical culling / cluster
+        repulsion from the stage-start centers, or None when neither is
+        on."""
+        cfg = self.cfg
+        if not ((cfg.use_culling and cfg.cull_hierarchical)
+                or cfg.cluster_repulsion):
+            return None
+        return build_clusters(padded.centers.detach().cpu().numpy(),
+                              mask=mask.cpu().numpy(),
+                              group=cfg.cull_cluster_group,
+                              device=self.device)
 
     def _init_params(self) -> SceneParams:
         cfg = self.cfg
         if cfg.init_layout == "cloud":
+            points = None
+            if cfg.init_points:
+                with open(cfg.init_points) as f:
+                    points = np.asarray(json.load(f)["points"],
+                                        np.float32).reshape(-1, 3)
             return init_scene_params_cloud(
                 cfg.init_n, seed=cfg.seed, extent=cfg.init_cloud_extent,
                 radius=cfg.init_cloud_radius,
-                ambient_logit=cfg.init_ambient_logit, device=self.device)
+                ambient_logit=cfg.init_ambient_logit, points=points,
+                jitter=cfg.init_points_jitter, device=self.device)
         return init_scene_params(cfg.init_n, cfg.init_offset,
                                  cfg.init_ambient_logit, device=self.device)
 
@@ -173,12 +248,23 @@ class Trainer:
         steps = num_steps if num_steps is not None else cfg.steps_per_stage
         loss = torch.zeros(())
         n_live = params.n
+        if self.warm:
+            self.prefill_t_cache(padded, mask,
+                                 anneal_for_step(cfg, stage, 1)[1])
+        clusters = self._build_cluster_table(padded, mask)
+        rep_static = None
+        fg_pool, n_fg_pool = self._sample_fg
         t0 = time.perf_counter()
         for step in range(1, steps + 1):
             idx = idx_fn(step) if idx_fn is not None else None
+            if (cfg.cluster_repulsion
+                    and (step - 1) % REP_STATIC_REFRESH == 0):
+                rep_static = build_repulsion_static(padded.centers, clusters,
+                                                    mask)
             loss, lr = self.step_fn(padded, generator, stage, step, mask,
-                                     ds.packed, ds.fg_indices, ds.num_fg,
-                                     idx=idx)
+                                     ds.packed, fg_pool, n_fg_pool,
+                                     idx=idx, t_cache=self.t_cache,
+                                     clusters=clusters, rep_static=rep_static)
             set_group_lrs(opt, lr, self.lr_scales)
             opt.step()
             if step % 100 == 0 or step == steps:
@@ -193,6 +279,56 @@ class Trainer:
                                  n_primitives=n_live, rays_per_s=round(rate))
         return padded, mask, loss
 
+    @torch.no_grad()
+    def prefill_t_cache(self, padded: SceneParams, mask: torch.Tensor,
+                        smooth_k: float) -> None:
+        """Full cold march over every dataset pixel → fresh t cache; every
+        training step then marches only cfg.warm_steps from the cached
+        roots."""
+        cfg = self.cfg
+        ds = self.dataset
+        centers_p, _, radii_p, _, _ = activate(padded)
+        for start in range(0, ds.num_total_pixels, cfg.batch_size):
+            ro = ds.rays_o[start:start + cfg.batch_size].contiguous()
+            rd = ds.rays_d[start:start + cfg.batch_size].contiguous()
+            if cfg.use_culling:
+                t_flat = self._culled_cold_march(ro, rd, centers_p, radii_p,
+                                                 mask, smooth_k)
+            else:
+                t, _ = self.march_normal_fn(ro, rd, centers_p, radii_p,
+                                            smooth_k, mask=mask)
+                t_flat = t[:, 0]
+            self.t_cache[start:start + ro.shape[0]] = t_flat
+
+    def _culled_cold_march(self, ro, rd, centers_p, radii_p, mask,
+                           smooth_k) -> torch.Tensor:
+        """Full cold march of one pixel chunk through the culled march (flat
+        selection: always conservative). The chunk is padded to whole tiles
+        with copies of its last ray."""
+        cfg = self.cfg
+        n, tile = ro.shape[0], cfg.cull_tile
+        pad = -n % tile
+        if pad:
+            ro = torch.cat([ro, ro[-1:].expand(pad, 3)])
+            rd = torch.cat([rd, rd[-1:].expand(pad, 3)])
+        _, _, cs, rs, qs = culled_tables(cfg, ro, rd, centers_p, radii_p,
+                                         smooth_k, mask)
+        b = ro.shape[0] // tile
+        kern = self.culled_march_normal_fn or culled_march_normals_xla
+        t, _ = kern(ro.reshape(b, tile, 3), rd.reshape(b, tile, 3), cs, rs,
+                    qs, smooth_k, num_steps=cfg.render.march_steps,
+                    normal_eps=cfg.render.normal_eps)
+        return t.reshape(-1)[:n]
+
+    def _cull_render(self) -> Optional[CullRender]:
+        """Culled-render options mirroring the training step's culling
+        (flat selection), or None for dense rendering."""
+        cfg = self.cfg
+        if not cfg.use_culling:
+            return None
+        return CullRender(tile=cfg.cull_tile, k_budget=cfg.cull_budget,
+                          march_normal_fn=self.culled_march_normal_fn)
+
     def save_preview(self, padded: SceneParams, mask: torch.Tensor,
                      path: str) -> None:
         cfg = self.cfg
@@ -204,6 +340,8 @@ class Trainer:
                            march_normal_fn=self.march_normal_fn,
                            softmax_sharpness=cfg.render.softmax_sharpness,
                            mask_sharpness=cfg.render.mask_sharpness,
+                           cull=self._cull_render(),
+                           order_wh=(cfg.width, cfg.height),
                            coverage_mode=cfg.render.coverage_mode)
         save_array_as_image(img, cfg.width, cfg.height, path)
         self.log(f"Saved image to {path}")

@@ -8,19 +8,142 @@ primitives" divides by the number of valid primitives.
   2. radius: 0.04 mean(r^2 where r > 1) + 0.002 mean(|r|), r = softplus(raw);
   3. origin attraction: 0.05 mean(centers^2);
   4. camera-proximity barrier: 5 mean(max(0, ||c|| + r - 1.2)^2);
-  5. exact O(M^2) pairwise repulsion: 1e-5 mean(1/(dist + 100 I + 1e-6)).
-The two-level cluster repulsion is not ported.
+  5. pairwise repulsion: 1e-5 mean(1/(dist + 100 I + 1e-6)), exact O(M^2),
+     or with ``repulsion_clusters`` the two-level cluster approximation
+     (``cluster_repulsion``, the plain version of the K4 kernel in
+     ops/cuda/repulsion_kernel.py).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch.nn import functional as F
 
 from burn_raymarching_tpu_torch.config import LossConfig
 from burn_raymarching_tpu_torch.models.scene import SceneParams
+
+
+class RepulsionStatic(NamedTuple):
+    """The non-differentiable half of the two-level repulsion's prep, frozen
+    between refreshes: neighbor-cluster ids are top-k indices, and validity,
+    counts and far weights depend only on the cluster table and the mask.
+    Freezing them only lags which cluster pairs get the exact near field;
+    member positions, centroids and neighbor positions stay live."""
+
+    nb: torch.Tensor        # [C, W] int64 near-cluster ids (own included)
+    nbm_idx: torch.Tensor   # [C, W·G] int64 neighbor-member primitive ids
+    nb_w: torch.Tensor      # [C, W·G] f32 neighbor-member validity
+    far_w: torch.Tensor     # [C, C] f32 (1 - near_hot) * counts row weights
+    counts: torch.Tensor    # [C] f32 live members per cluster
+    w: torch.Tensor         # [C, G] f32 member validity
+
+
+def _member_weights(clusters, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    valid = clusters.member_valid
+    if mask is not None:
+        valid = valid & mask.bool()[clusters.member_idx]
+    return valid.to(torch.float32)
+
+
+def _centroids(cs: torch.Tensor, w: torch.Tensor, counts: torch.Tensor
+               ) -> torch.Tensor:
+    return (torch.sum(cs * w[..., None], dim=1)
+            / torch.clamp(counts, min=1.0)[:, None])
+
+
+def centroid_d2(centroids: torch.Tensor, counts: torch.Tensor
+                ) -> torch.Tensor:
+    """[C, C] squared centroid distances, +inf on empty clusters' columns."""
+    cd2 = torch.sum((centroids[:, None, :] - centroids[None, :, :]) ** 2,
+                    dim=2)
+    return torch.where((counts > 0)[None, :], cd2,
+                       torch.full_like(cd2, float("inf")))
+
+
+def near_tables(member_idx: torch.Tensor, w: torch.Tensor,
+                counts: torch.Tensor, cd2: torch.Tensor, w_near: int):
+    """W nearest clusters per cluster → (nb [C, W], neighbor-member ids
+    [C, W·G], their validity [C, W·G], far weights [C, C])."""
+    c_count, g = member_idx.shape
+    # Stable sort: ties (empty clusters' +inf) go to the lower index, as in
+    # jax.lax.top_k.
+    nb = torch.sort(cd2, dim=1, stable=True).indices[:, :w_near]
+    nbm = member_idx[nb].reshape(c_count, w_near * g)
+    nb_w = w[nb].reshape(c_count, w_near * g)
+    near_hot = torch.sum(F.one_hot(nb, c_count).to(w.dtype), dim=1)
+    return nb, nbm, nb_w, (1.0 - near_hot) * counts[None, :]
+
+
+@torch.no_grad()
+def build_repulsion_static(centers: torch.Tensor, clusters,
+                           mask: Optional[torch.Tensor],
+                           near_clusters: int = 8) -> RepulsionStatic:
+    """Freeze the repulsion prep from the current centers. With the same
+    centers the static path reproduces the live path exactly."""
+    member_idx = clusters.member_idx
+    c_count, g = member_idx.shape
+    w = _member_weights(clusters, mask)
+    counts = torch.sum(w, dim=1)
+    cs = centers.detach()[member_idx.reshape(-1)].reshape(c_count, g, 3)
+    cd2 = centroid_d2(_centroids(cs, w, counts), counts)
+    nb, nbm, nb_w, far_w = near_tables(member_idx, w, counts, cd2,
+                                       min(near_clusters, c_count))
+    return RepulsionStatic(nb, nbm, nb_w, far_w, counts, w)
+
+
+def cluster_repulsion(centers: torch.Tensor, clusters,
+                      mask: Optional[torch.Tensor], n_valid,
+                      near_clusters: int = 8, far_field: str = "member",
+                      static: Optional[RepulsionStatic] = None
+                      ) -> torch.Tensor:
+    """Barnes-Hut approximation of the pairwise repulsion mean (plain
+    version of K4): exact 1/(d + 100·I + 1e-6) over pairs whose clusters are
+    among the ``near_clusters`` nearest by centroid (own included), centroid
+    monopoles for the rest. ``far_field`` "member" evaluates every member
+    against every far centroid ([M, C] pairs); "monopole" collapses both
+    sides to centroids ([C, C] pairs). Gradients flow through member
+    positions and the centroids. ``static`` supplies the frozen prep."""
+    member_idx = clusters.member_idx
+    c_count, g = member_idx.shape
+    if static is not None:
+        w, counts, nb = static.w, static.counts, static.nb
+        nbm_flat, nb_w, far_w_rows = static.nbm_idx, static.nb_w, static.far_w
+        w_near = nb.shape[1]
+        cd2 = None
+    else:
+        w = _member_weights(clusters, mask).to(centers.dtype)
+        counts = torch.sum(w, dim=1)
+        w_near = min(near_clusters, c_count)
+    cs = centers[member_idx.reshape(-1)].reshape(c_count, g, 3)
+    centroids = _centroids(cs, w, counts)                    # [C, 3]
+    if static is None:
+        cd2 = centroid_d2(centroids, counts)
+        nb, nbm_flat, nb_w, far_w_rows = near_tables(
+            member_idx, w, counts, cd2.detach(), w_near)
+
+    # Exact near-field pairs, +100 on true self-pairs.
+    nb_cs = cs[nb].reshape(c_count, w_near * g, 3)
+    d2 = torch.sum((cs[:, :, None, :] - nb_cs[:, None, :, :]) ** 2, dim=3)
+    dist = torch.sqrt(torch.clamp(d2, min=1e-6))             # [C, G, W·G]
+    self_pair = member_idx[:, :, None] == nbm_flat.reshape(c_count, 1, -1)
+    inv = 1.0 / (dist + self_pair.to(dist.dtype) * 100.0 + 1e-6)
+    s_near = torch.sum(inv * w[:, :, None] * nb_w[:, None, :])
+
+    if far_field == "monopole":
+        ccd2 = cd2 if cd2 is not None else centroid_d2(centroids, counts)
+        inv_cc = 1.0 / (torch.sqrt(torch.clamp(ccd2, min=1e-6)) + 1e-6)
+        s_far = torch.sum(far_w_rows * counts[:, None] * inv_cc)
+    else:
+        diff = cs.reshape(c_count * g, 1, 3) - centroids[None, :, :]
+        dist_f = torch.sqrt(torch.clamp(torch.sum(diff * diff, dim=2),
+                                        min=1e-6))           # [C·G, C]
+        inv_f = 1.0 / (dist_f + 1e-6)
+        far_w = far_w_rows[:, None, :].expand(c_count, g, c_count).reshape(
+            c_count * g, c_count)
+        s_far = torch.sum(inv_f * w.reshape(-1)[:, None] * far_w)
+    return (s_near + s_far) / (n_valid * n_valid)
 
 
 def _masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor],
@@ -35,7 +158,15 @@ def _masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor],
 def compute_loss(params: SceneParams, output: torch.Tensor,
                  target: torch.Tensor, progress: float,
                  mask: Optional[torch.Tensor] = None,
-                 cfg: LossConfig = LossConfig()) -> torch.Tensor:
+                 cfg: LossConfig = LossConfig(), repulsion_clusters=None,
+                 repulsion_fn=None,
+                 repulsion_static: Optional[RepulsionStatic] = None
+                 ) -> torch.Tensor:
+    """Scalar training loss. ``repulsion_clusters`` (PrimitiveClusters)
+    switches term 5 to the two-level repulsion, computed by
+    ``repulsion_fn`` (the K4 wrapper) when given and by
+    ``cluster_repulsion`` otherwise; ``repulsion_static`` is the frozen
+    prep."""
     # --- 1. Weighted L1 reconstruction ---
     abs_diff = torch.abs(output - target)
     target_sum = torch.sum(target, dim=1, keepdim=True)
@@ -76,7 +207,13 @@ def compute_loss(params: SceneParams, output: torch.Tensor,
                             torch.zeros_like(excess))
     loss = loss + _masked_mean(proximity, mask, n_valid) * cfg.proximity_coeff
 
-    # --- 5. Exact pairwise repulsion ---
+    # --- 5. Pairwise repulsion ---
+    if repulsion_clusters is not None:
+        fn = repulsion_fn if repulsion_fn is not None else cluster_repulsion
+        repulsion = fn(params.centers, repulsion_clusters, mask, n_valid,
+                       far_field=cfg.repulsion_far_field,
+                       static=repulsion_static)
+        return loss + repulsion * cfg.repulsion_coeff
     c = params.centers
     c_sq = torch.sum(c * c, dim=1, keepdim=True)              # [M, 1]
     dist_sq = c_sq + c_sq.T - 2.0 * (c @ c.T)

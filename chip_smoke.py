@@ -5,21 +5,43 @@ Runs the port (burn_raymarching_tpu_torch) end to end on the card, in
 phases, each printing one JSON line; any failure raises and the script exits
 non-zero without the final result line:
 
-  1. device   — torch's device name and nvidia-smi's name and power limit;
-  2. build    — nvcc-builds every kernel of the training path from csrc/;
-  3. kernels  — each kernel against its plain PyTorch version at the main
-                path's shapes (16,384 rays of the 10-view 256² dango rig,
-                100 live primitives in a 128-slot table): max abs error
-                against the stated tolerance, and median CUDA-event times of
-                both;
-  4. generate — the port's generator writes the dango dataset (10 views at
-                256²) into a temporary directory;
-  5. train    — train_cli at config-1 width (batch 16,384, reference init,
-                default flags, kernels on) for 2 stages x 100 steps, which
-                crosses one density-control boundary and exports scene.json;
-                every kernel's launch counter must have grown during it;
-                then the final loss, train-view PSNR and steady-state rays/s
-                of the kernel step and of the --no-pallas step.
+  1. device      — torch's device name and nvidia-smi's name and power limit;
+  2. build       — nvcc-builds every kernel library from csrc/, one nvcc per
+                   source, all started together;
+  3. kernels     — K1 and K2 against their plain PyTorch versions at the
+                   config-1 path's shapes (16,384 rays of the 10-view 256²
+                   dango rig, 100 live primitives in a 128-slot table): max
+                   abs error against the stated tolerance, and median
+                   CUDA-event times of both;
+  4. kernels_c4  — K3 against its plain version at config-4 shapes (32 tiles
+                   x 512 rays of the 30-view 512² knot rig, K = 2,048,
+                   k = 128, tables from a real selection over 5,120
+                   knot-seeded primitives), cold (40 steps) and warm (16
+                   steps from 0.8 t_cold), within 5x the plain version's
+                   own float32 error against float64; K4 forward and
+                   backward against autograd of the plain versions, member
+                   and monopole, at C = 80 (config 4) and C = 800
+                   (M = 51,200), with a bitwise repeat check of its
+                   gradients;
+  5. generate    — the port's generator writes the dango dataset (10 views at
+                   256²) into a temporary directory;
+  6. train       — train_cli at config-1 width (batch 16,384, reference init,
+                   default flags, kernels on) for 2 stages x 100 steps, which
+                   crosses one density-control boundary and exports
+                   scene.json; K1 and K2's launch counters must have grown
+                   during it; then the final loss, train-view PSNR and
+                   steady-state rays/s of the kernel step and of the
+                   --no-pallas step;
+  7. generate_c4 — the generator writes the config-4 knot set (30 views at
+                   512², 400 GT spheres, GT k 128, sharpness 40);
+  8. train_c4    — train_cli with the config-4 recipe (tools/run_c5.py) cut to
+                   2 stages x 100 steps, which still crosses one density
+                   boundary with the merge; K3 and K4's launch counters must
+                   have grown; the loss must be finite and the culled
+                   train-view PSNR above the init's, measured in this run;
+                   then steady-state rays/s of the kernel and --no-pallas
+                   steps and the kernel step's device-busy share
+                   (torch.profiler).
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 
@@ -46,6 +68,13 @@ M_LIVE, M_SLOTS = 100, 128
 # Train-view PSNR floor after the short 2 x 100-step run: far below a full
 # run's ~30 dB, far above the ~10 dB of an untrained or broken scene.
 MIN_PSNR_DB = 15.0
+LIBRARIES = ("march_shade", "shade", "culled_march", "repulsion")
+# Config 4 (runs/c4_r2): the knot capture, the prior-seeded init and the
+# per-tile top-K budget.
+C4_VIEWS, C4_SIZE, C4_GT_N, C4_INIT_N = 30, 512, 400, 5120
+C4_TILES, C4_TILE, C4_BUDGET, C4_K = 32, 512, 2048, 128.0
+# M = 51,200: scripts/bench_large.py's primitive count (C = 800 clusters).
+LARGE_INIT_N = 51200
 
 
 def emit(phase: str, **fields) -> None:
@@ -76,12 +105,14 @@ def check_close(failures: list, name: str, err: float, tol: float) -> None:
         failures.append(f"{name}: max abs err {err:.3e} > tol {tol:.1e}")
 
 
-def k1_errors(torch, t_k, n_k, t_p, n_p) -> dict:
-    """K1 against its plain version. The march is ill-conditioned on some
+def march_errors(torch, t_k, n_k, t_p, n_p) -> dict:
+    """K1 or K3 against its plain version. The march is ill-conditioned on some
     rays (on this input the plain march in float32 differs from float64 by
     up to 4e-3 in t on hit rays, 4e-4 relative on missed rays, and 1.3e-3
     in the normal), so t is held to |dt| <= 1e-2 on rays that hit (t < 10)
     and |dt|/(1+t) <= 2e-3 on all rays, normals to 5e-3 on hit rays."""
+    t_k, t_p = t_k.reshape(-1, 1), t_p.reshape(-1, 1)
+    n_k, n_p = n_k.reshape(-1, 3), n_p.reshape(-1, 3)
     hit = t_p[:, 0] < 10.0
     dt = (t_k - t_p).abs()[:, 0]
     return {
@@ -93,8 +124,23 @@ def k1_errors(torch, t_k, n_k, t_p, n_p) -> dict:
     }
 
 
-K1_TOLS = {"max_abs_err_t_hit": 1e-2, "max_rel_err_t_all": 2e-3,
-           "max_abs_err_normal_hit": 5e-3}
+MARCH_TOLS = {"max_abs_err_t_hit": 1e-2, "max_rel_err_t_all": 2e-3,
+              "max_abs_err_normal_hit": 5e-3}
+
+
+def march_noise_tols(torch, t_p, n_p, t_64, n_64) -> dict:
+    """K3's tolerances, from the float32 noise of the march itself: 5x the
+    plain version's own error against the same march in float64, plus
+    1e-5. At k = 128 around spheres of radius ~0.03 the cancellation error
+    of the expanded |p - c|^2 (~ulp(|p|^2)) becomes ~2e-6 in the distance,
+    which the normal's 1/(2 eps) difference scales to ~1e-2 and the march
+    carries into t on grazing rays. A kernel that rounds no worse than the
+    plain version stays within about twice that noise of it; each figure
+    is a maximum over a few thousand rays, decided by the few worst-
+    conditioned ones, and two roundings of those differ by up to 2.6x more
+    (warm t: 1.9e-4 against a float64 error of 5.2e-5, H100)."""
+    noise = march_errors(torch, t_p, n_p, t_64.float(), n_64.float())
+    return {key: 5.0 * noise[key] + 1e-5 for key in MARCH_TOLS}
 
 
 def phase_device(torch) -> str:
@@ -113,8 +159,7 @@ def phase_build() -> None:
     from burn_raymarching_tpu_torch.ops.cuda import build
 
     t0 = time.perf_counter()
-    for name in ("march_shade", "shade"):
-        build.load_library(name)
+    build.build_all(LIBRARIES)
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          per_library_s={k: round(v, 3) for k, v in build.BUILD_SECONDS.items()})
     for name, log in build.BUILD_LOG.items():
@@ -176,20 +221,20 @@ def phase_kernels(torch, dev) -> dict:
     failures = []
     t_k, n_k = k1.march_shade(ro, rd, c, r, k, mask=mask)
     t_p, n_p = k1.march_shade_plain(ro, rd, c, r, k, mask=mask)
-    cold = k1_errors(torch, t_k, n_k, t_p, n_p)
+    cold = march_errors(torch, t_k, n_k, t_p, n_p)
     t_init = (t_p * 0.8).contiguous()
     tw_k, nw_k = k1.march_shade(ro, rd, c, r, k, mask=mask, num_steps=16,
                                 t_init=t_init)
     tw_p, nw_p = k1.march_shade_plain(ro, rd, c, r, k, mask=mask,
                                       num_steps=16, t_init=t_init)
-    warm = k1_errors(torch, tw_k, nw_k, tw_p, nw_p)
+    warm = march_errors(torch, tw_k, nw_k, tw_p, nw_p)
     for label, errs in (("cold", cold), ("warm16", warm)):
-        for key, tol in K1_TOLS.items():
+        for key, tol in MARCH_TOLS.items():
             check_close(failures, f"K1 {label} {key}", errs[key], tol)
     ms = time_ms(torch, lambda: k1.march_shade(ro, rd, c, r, k, mask=mask))
     plain_ms = time_ms(torch, lambda: k1.march_shade_plain(ro, rd, c, r, k,
                                                            mask=mask))
-    emit("kernel", name="march_shade", cold=cold, warm16=warm, tol=K1_TOLS,
+    emit("kernel", name="march_shade", cold=cold, warm16=warm, tol=MARCH_TOLS,
          ms=ms, plain_ms=plain_ms)
     results["march_shade"] = dict(max_abs_err=cold["max_abs_err_t_hit"],
                                   ms=ms, plain_ms=plain_ms)
@@ -274,14 +319,247 @@ def phase_kernels(torch, dev) -> dict:
     return results
 
 
-def step_rate(torch, trainer, final, mask, steps: int = 30) -> float:
-    """Steady-state rays/s of the trainer's full step (sample, forward,
-    loss, backward, Adam) from a fresh copy of the padded ``final`` params,
-    host clock around synchronized work."""
+def knot_cloud(torch, dev, n: int):
+    """The prior-seeded cloud init of ``n`` spheres around the generator's
+    400-sphere knot (points.json, jitter 0.02), padded to its bucket →
+    (padded, mask, centers, radii) with the last two activated and
+    detached."""
+    from burn_raymarching_tpu_torch.models.scene import (
+        activate,
+        init_scene_params_cloud,
+        pad_params,
+    )
+    from burn_raymarching_tpu_torch.tools.generate import knot_scene
+    from burn_raymarching_tpu_torch.utils import bucket_size
+
+    pts, _, _ = knot_scene(C4_GT_N)
+    params = init_scene_params_cloud(n, seed=0, points=pts, jitter=0.02,
+                                     device=dev)
+    padded, mask = pad_params(params, bucket_size(n))
+    c, _, r, _, _ = activate(padded)
+    return padded, mask, c.detach(), r.detach()
+
+
+def c4_tiles(torch, dev, c, r, mask):
+    """32 tile-coherent ray tiles of the config-4 rig and their top-K
+    tables: Morton tiles of 4 random views, selected against the whole
+    primitive table, 32 picked among those whose selection is not empty."""
+    import numpy as np
+
+    from burn_raymarching_tpu_torch.data.camera import create_camera_rays
+    from burn_raymarching_tpu_torch.ops.culling import (
+        select_tile_primitives,
+        tile_cones,
+    )
+    from burn_raymarching_tpu_torch.tools.generate import ring_cameras
+    from burn_raymarching_tpu_torch.utils import morton_permutation
+
+    rng = np.random.default_rng(0)
+    perm = torch.as_tensor(morton_permutation(C4_SIZE, C4_SIZE), device=dev)
+    cams = ring_cameras(C4_VIEWS)
+    ro_all, rd_all = [], []
+    for v in rng.choice(C4_VIEWS, 4, replace=False):
+        ro, rd = create_camera_rays(C4_SIZE, C4_SIZE, cams[v]["origin"],
+                                    cams[v]["target"], cams[v]["fov"],
+                                    device=dev)
+        ro_all.append(ro[perm])
+        rd_all.append(rd[perm])
+    ro, rd = torch.cat(ro_all), torch.cat(rd_all)
+    idx, valid = select_tile_primitives(tile_cones(ro, rd, C4_TILE), c, r,
+                                        C4_K, C4_BUDGET, mask=mask)
+    live = torch.nonzero(valid.sum(dim=1) > 0)[:, 0].cpu().numpy()
+    pick = torch.as_tensor(np.sort(rng.choice(live, C4_TILES,
+                                              replace=False)), device=dev)
+    idx, valid = idx[pick], valid[pick]
+    cs = c[idx]
+    rs = r.reshape(-1)[idx]
+    qs = torch.where(valid, torch.sum(cs * cs, dim=2),
+                     torch.full_like(rs, 1e30))
+    ro3 = ro.reshape(-1, C4_TILE, 3)[pick].contiguous()
+    rd3 = rd.reshape(-1, C4_TILE, 3)[pick].contiguous()
+    counts = valid.sum(dim=1)
+    return (ro3, rd3, cs, rs, qs), {"valid_per_tile_min": int(counts.min()),
+                                    "valid_per_tile_max": int(counts.max())}
+
+
+# K4 tolerances, relative to the plain value or the plain gradient's
+# largest entry: float32 sums of 2.6 M (C = 80) to 67 M (C = 800) pair
+# terms, taken in another order.
+K4_TOLS = {"value_rel": 1e-4, "grad_rel_to_max": 1e-4}
+
+
+def k4_case(torch, dev, n: int, far_field: str, failures: list) -> dict:
+    """K4 at ``n`` knot-seeded primitives with the main path's frozen static
+    prep: the kernels against autograd of the plain planes sum, the whole
+    wrapper against train/loss.cluster_repulsion, bitwise repeats, times."""
+    from burn_raymarching_tpu_torch.ops.cuda import repulsion_kernel as k4
+    from burn_raymarching_tpu_torch.ops.culling import build_clusters
+    from burn_raymarching_tpu_torch.train.loss import (
+        build_repulsion_static,
+        cluster_repulsion,
+    )
+
+    _, mask, c, _ = knot_cloud(torch, dev, n)
+    clusters = build_clusters(c.cpu().numpy(), mask=mask.cpu().numpy(),
+                              group=64, device=dev)
+    static = build_repulsion_static(c, clusters, mask)
+    n_valid = mask.float().sum()
+    label = f"K4 {far_field} C={clusters.member_idx.shape[0]}"
+    out = {"clusters": clusters.member_idx.shape[0],
+           "far_field": far_field, "tol": K4_TOLS}
+
+    # Whole wrapper (prep + kernels) against the plain cluster_repulsion.
+    def value_grad(fn):
+        cc = c.clone().requires_grad_()
+        v = fn(cc, clusters, mask, n_valid, far_field=far_field,
+               static=static)
+        (g,) = torch.autograd.grad(v, [cc])
+        return v.detach(), g
+
+    v_k, g_k = value_grad(k4.cluster_repulsion_fused)
+    v_p, g_p = value_grad(cluster_repulsion)
+    out["wrapper_value_abs_err"] = abs(v_k - v_p).item()
+    out["wrapper_value_rel_err"] = (out["wrapper_value_abs_err"]
+                                    / abs(v_p).item())
+    out["wrapper_grad_max_abs_err"] = (g_k - g_p).abs().max().item()
+    out["wrapper_grad_err_rel_to_max"] = (out["wrapper_grad_max_abs_err"]
+                                          / g_p.abs().max().item())
+
+    # The kernels alone against autograd of the plain planes sum.
+    include_far = far_field != "monopole"
+    planes, *_ = k4.repulsion_planes(c, clusters, mask, static=static)
+    leaves = [x.clone().requires_grad_() for x in planes[:3]]
+    s_p = k4.repulsion_sum_plain(*leaves, *planes[3:], include_far)
+    grads_p = [torch.zeros_like(x) if g is None else g
+               for x, g in zip(leaves, torch.autograd.grad(
+                   s_p, leaves, retain_graph=True, allow_unused=True))]
+    partial = k4.launch_rep_fwd(*planes, include_far)
+    s_k = k4.launch_rep_reduce(partial[:, None])[0]
+    g1 = torch.ones((1,), device=dev)
+    first = k4.launch_rep_bwd(*planes, g1, include_far)
+    second = k4.launch_rep_bwd(*planes, g1, include_far)
+    out["bitwise_repeatable"] = all(
+        torch.equal(a, b) for a, b in zip(first, second) if a is not None)
+    if not out["bitwise_repeatable"]:
+        failures.append(f"{label}: gradients differ between two runs")
+    d_cents = (k4.launch_rep_reduce(first[2]) if include_far
+               else torch.zeros_like(grads_p[2]))
+    out["fwd_value_abs_err"] = abs(s_k - s_p).item()
+    out["fwd_value_rel_err"] = out["fwd_value_abs_err"] / abs(s_p).item()
+    out["bwd_grad_max_abs_err"] = max(
+        (a - b).abs().max().item()
+        for a, b in zip((first[0], first[1], d_cents), grads_p))
+    out["bwd_grad_err_rel_to_max"] = out["bwd_grad_max_abs_err"] / max(
+        g.abs().max().item() for g in grads_p)
+    for key, tol in (("wrapper_value_rel_err", "value_rel"),
+                     ("fwd_value_rel_err", "value_rel"),
+                     ("wrapper_grad_err_rel_to_max", "grad_rel_to_max"),
+                     ("bwd_grad_err_rel_to_max", "grad_rel_to_max")):
+        check_close(failures, f"{label} {key}", out[key], K4_TOLS[tol])
+
+    with torch.no_grad():
+        out["fwd_ms"] = time_ms(torch, lambda: k4.launch_rep_fwd(
+            *planes, include_far))
+        out["fwd_plain_ms"] = time_ms(torch, lambda: k4.repulsion_sum_plain(
+            *planes, include_far))
+    out["bwd_ms"] = time_ms(torch, lambda: k4.launch_rep_bwd(
+        *planes, g1, include_far))
+    out["bwd_plain_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+        s_p, leaves, retain_graph=True, allow_unused=True))
+    part = first[2] if include_far else partial[:, None]
+    out["reduce_ms"] = time_ms(torch, lambda: k4.launch_rep_reduce(part))
+    out["reduce_plain_ms"] = time_ms(torch, lambda: part.sum(0))
+    out["reduce_abs_err"] = (k4.launch_rep_reduce(part)
+                             - part.sum(0)).abs().max().item()
+    out["reduce_rel_err"] = (out["reduce_abs_err"]
+                             / part.abs().sum(0).max().item())
+    check_close(failures, f"{label} reduce", out["reduce_rel_err"], 1e-6)
+    return out
+
+
+def phase_kernels_c4(torch, dev) -> dict:
+    from burn_raymarching_tpu_torch.ops.cuda import culled_march_kernel as k3
+    from burn_raymarching_tpu_torch.render.culled import (
+        culled_march_normals_xla,
+    )
+
+    failures = []
+    _, mask, c, r = knot_cloud(torch, dev, C4_INIT_N)
+    args, table_stats = c4_tiles(torch, dev, c, r, mask)
+    args64 = [a.double() for a in args]
+    t_init = None
+    errs, tols = {}, {}
+    for label, steps in (("cold", 40), ("warm16", 16)):
+        kw = dict(num_steps=steps, t_init=t_init)
+        t_k, n_k = k3.culled_march_normals(*args, C4_K, **kw)
+        t_p, n_p = culled_march_normals_xla(*args, C4_K, **kw)
+        t_64, n_64 = culled_march_normals_xla(
+            *args64, C4_K, num_steps=steps,
+            t_init=None if t_init is None else t_init.double())
+        errs[label] = march_errors(torch, t_k, n_k, t_p, n_p)
+        for name, (t_x, n_x) in (("plain", (t_p, n_p)),
+                                 ("kernel", (t_k, n_k))):
+            errs[label][f"{name}_vs_float64"] = march_errors(
+                torch, t_x, n_x, t_64.float(), n_64.float())
+        tols[label] = march_noise_tols(torch, t_p, n_p, t_64, n_64)
+        for key, tol in tols[label].items():
+            check_close(failures, f"K3 {label} {key}", errs[label][key], tol)
+        if t_init is None:
+            t_init = (t_p * 0.8).contiguous()
+    cold, warm = errs["cold"], errs["warm16"]
+    warm_kw = dict(num_steps=16, t_init=t_init)
+    ms = time_ms(torch, lambda: k3.culled_march_normals(*args, C4_K,
+                                                        **warm_kw))
+    plain_ms = time_ms(torch, lambda: culled_march_normals_xla(
+        *args, C4_K, **warm_kw), reps=5)
+    cold_ms = time_ms(torch, lambda: k3.culled_march_normals(*args, C4_K))
+    cold_plain_ms = time_ms(torch, lambda: culled_march_normals_xla(
+        *args, C4_K), reps=5)
+    emit("kernel", name="culled_march", tiles=C4_TILES, rays_per_tile=C4_TILE,
+         table=C4_BUDGET, smooth_k=C4_K, **table_stats, cold=cold,
+         warm16=warm, tol=tols, warm16_ms=ms, warm16_plain_ms=plain_ms,
+         cold_ms=cold_ms, cold_plain_ms=cold_plain_ms)
+    results = {"culled_march": dict(max_abs_err=warm["max_abs_err_t_hit"],
+                                    ms=ms, plain_ms=plain_ms)}
+
+    cases = {}
+    for n, far_field in ((C4_INIT_N, "member"), (C4_INIT_N, "monopole"),
+                         (LARGE_INIT_N, "member"),
+                         (LARGE_INIT_N, "monopole")):
+        case = k4_case(torch, dev, n, far_field, failures)
+        emit("kernel", name="repulsion", **case)
+        cases[(n, far_field)] = case
+    # Errors of the repulsion term as the loss sees it (the sum over
+    # n_valid^2, and its gradient in the centers); the reduction's on the
+    # raw partial sums, with its relative error beside it.
+    main = cases[(C4_INIT_N, "member")]
+    results["repulsion_fwd"] = dict(
+        max_abs_err=main["wrapper_value_abs_err"],
+        max_rel_err=main["wrapper_value_rel_err"], ms=main["fwd_ms"],
+        plain_ms=main["fwd_plain_ms"])
+    results["repulsion_bwd"] = dict(
+        max_abs_err=main["wrapper_grad_max_abs_err"],
+        max_rel_err=main["wrapper_grad_err_rel_to_max"], ms=main["bwd_ms"],
+        plain_ms=main["bwd_plain_ms"])
+    results["repulsion_reduce"] = dict(
+        max_abs_err=main["reduce_abs_err"],
+        max_rel_err=main["reduce_rel_err"], ms=main["reduce_ms"],
+        plain_ms=main["reduce_plain_ms"])
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return results
+
+
+def step_runner(torch, trainer, final, mask, t_cache=None):
+    """The trainer's full step (sample, forward, loss, backward, Adam) on a
+    fresh copy of the padded ``final`` params, with the trainer's sampling
+    pools, cluster table, frozen repulsion prep and a copy of ``t_cache``
+    (for warm-started configs) → one(step)."""
     from burn_raymarching_tpu_torch.models.scene import (
         pad_params,
         unpad_params,
     )
+    from burn_raymarching_tpu_torch.train.loss import build_repulsion_static
     from burn_raymarching_tpu_torch.train.optimizer import (
         make_optimizer,
         set_group_lrs,
@@ -292,13 +570,27 @@ def step_rate(torch, trainer, final, mask, steps: int = 30) -> float:
     opt = make_optimizer(cfg, padded)
     gen = torch.Generator(device=ds.device)
     gen.manual_seed(1)
+    clusters = trainer._build_cluster_table(padded, mask)
+    rep_static = (build_repulsion_static(padded.centers, clusters, mask)
+                  if cfg.cluster_repulsion else None)
+    fg_pool, n_fg = trainer._sample_fg
+    cache = None if t_cache is None else t_cache.clone()
 
     def one(step):
         _, lr = trainer.step_fn(padded, gen, cfg.stages - 1, step, mask,
-                                ds.packed, ds.fg_indices, ds.num_fg)
+                                ds.packed, fg_pool, n_fg, t_cache=cache,
+                                clusters=clusters, rep_static=rep_static)
         set_group_lrs(opt, lr, trainer.lr_scales)
         opt.step()
 
+    return one
+
+
+def step_rate(torch, trainer, final, mask, steps: int = 30,
+              t_cache=None) -> float:
+    """Steady-state rays/s of ``step_runner``'s step after 5 warm-up steps,
+    host clock around synchronized work."""
+    one = step_runner(torch, trainer, final, mask, t_cache)
     for s in range(1, 6):
         one(s)
     torch.cuda.synchronize()
@@ -306,10 +598,52 @@ def step_rate(torch, trainer, final, mask, steps: int = 30) -> float:
     for s in range(6, 6 + steps):
         one(s)
     torch.cuda.synchronize()
-    return steps * cfg.batch_size / (time.perf_counter() - t0)
+    return steps * trainer.cfg.batch_size / (time.perf_counter() - t0)
 
 
-def phase_generate_and_train(torch, kernels: dict) -> None:
+def device_profile(torch, trainer, final, mask, t_cache, steps: int = 10
+                   ) -> dict:
+    """torch.profiler over ``steps`` steady steps, read from its trace's
+    device events (kernels, copies, memsets; not the annotation spans that
+    the trace also places on the device) → busy device time per step (the
+    union of their intervals), events per step and the five kernel names
+    with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    one = step_runner(torch, trainer, final, mask, t_cache)
+    for s in range(1, 4):
+        one(s)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for s in range(4, 4 + steps):
+            one(s)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                    e.get("name", "")) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                   and "dur" in e)
+    busy_us, end = 0.0, -math.inf
+    by_name: dict = {}
+    for start, stop, name in spans:
+        busy_us += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+        by_name[name] = by_name.get(name, 0.0) + (stop - start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"device_busy_ms_per_step": busy_us / 1000.0 / steps,
+            "device_events_per_step": len(spans) / steps,
+            "top_kernels_ms_per_step": [[k[:60], d / 1000.0 / steps]
+                                        for k, d in top]}
+
+
+def phase_generate_and_train(torch) -> dict:
+    """generate + train (config 1) → K1 and K2's launch counts on that
+    path."""
     import numpy as np
 
     from burn_raymarching_tpu_torch.data.scene_io import load_cameras
@@ -378,22 +712,92 @@ def phase_generate_and_train(torch, kernels: dict) -> None:
             raise AssertionError(f"bad training result: loss {final_loss}, "
                                  f"PSNR {ev['mean']} (need > {MIN_PSNR_DB})")
 
-    sources = {"march_shade": ("burn_raymarching_tpu_torch/csrc/march_shade.cu",
-                               "burn_raymarching_tpu/ops/pallas/"
-                               "march_shade_kernel.py:192"),
-               "shade_fwd": ("burn_raymarching_tpu_torch/csrc/shade.cu",
-                             "burn_raymarching_tpu/ops/pallas/"
-                             "shade_kernel.py:265"),
-               "shade_bwd": ("burn_raymarching_tpu_torch/csrc/shade.cu",
-                             "burn_raymarching_tpu/ops/pallas/"
-                             "shade_kernel.py:283"),
-               "shade_reduce": ("burn_raymarching_tpu_torch/csrc/shade.cu",
-                                "burn_raymarching_tpu/ops/pallas/"
-                                "shade_kernel.py:283")}
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": sources[name][0],
-         "replaces": sources[name][1], "launches": launches[name],
-         **kernels[name]} for name in counters]}), flush=True)
+    return launches
+
+
+def phase_c4(torch) -> dict:
+    """generate_c4 + train_c4 → K3 and K4's launch counts on that path."""
+    from burn_raymarching_tpu_torch.ops.cuda import culled_march_kernel as k3
+    from burn_raymarching_tpu_torch.ops.cuda import repulsion_kernel as k4
+    from burn_raymarching_tpu_torch.tools import generate, run_c5, train_cli
+    from burn_raymarching_tpu_torch.train.loop import Trainer
+
+    counters = {"culled_march": k3.culled_march_normals,
+                "repulsion_fwd": k4.launch_rep_fwd,
+                "repulsion_bwd": k4.launch_rep_bwd,
+                "repulsion_reduce": k4.launch_rep_reduce}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        generate.main(run_c5.generate_argv(data, views=C4_VIEWS,
+                                           size=C4_SIZE, gt_n=C4_GT_N))
+        emit("generate_c4", views=C4_VIEWS, size=C4_SIZE, gt_n=C4_GT_N,
+             seconds=round(time.perf_counter() - t0, 3))
+
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        trainer, padded, mask = train_cli.main(run_c5.recipe_argv(
+            data, tmp, size=C4_SIZE, init_n=C4_INIT_N, steps=TRAIN_STEPS,
+            stages=TRAIN_STAGES, cull_budget=C4_BUDGET))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        missing = [name for name, n in launches.items() if n <= 0]
+        if missing:
+            raise AssertionError(f"kernels not launched on the config-4 "
+                                 f"path: {missing}")
+
+        cfg = trainer.cfg
+        final_loss = trainer.loss_history[-1]
+        t0 = time.perf_counter()
+        psnr_init = run_c5.views_psnr(trainer, *run_c5.init_padded(trainer),
+                                      cull=trainer._cull_render())
+        psnr = run_c5.views_psnr(trainer, padded, mask,
+                                 cull=trainer._cull_render())
+        eval_s = (time.perf_counter() - t0) / 2
+        rate_kernels = step_rate(torch, trainer, padded, mask,
+                                 t_cache=trainer.t_cache)
+        wall_ms = cfg.batch_size / rate_kernels * 1000.0
+        prof = device_profile(torch, trainer, padded, mask, trainer.t_cache)
+        plain_trainer = Trainer(dataclasses.replace(cfg, use_pallas=False),
+                                trainer.dataset, log=lambda s: None)
+        rate_plain = step_rate(torch, plain_trainer, padded, mask, steps=10,
+                               t_cache=trainer.t_cache)
+        emit("train_c4", stages=TRAIN_STAGES, steps_per_stage=TRAIN_STEPS,
+             batch=cfg.batch_size, init_n=C4_INIT_N,
+             seconds=round(train_s, 3), final_n=int(mask.sum().item()),
+             final_loss=final_loss, loss_history=trainer.loss_history,
+             psnr_init=psnr_init, psnr_trained=psnr,
+             eval_seconds_per_pass=round(eval_s, 3),
+             rays_per_s_kernels=rate_kernels, rays_per_s_plain=rate_plain,
+             wall_ms_per_step=wall_ms,
+             device_busy_share=prof["device_busy_ms_per_step"] / wall_ms,
+             **prof,
+             launches=launches)
+        if not (math.isfinite(final_loss) and psnr > psnr_init):
+            raise AssertionError(f"bad config-4 result: loss {final_loss}, "
+                                 f"PSNR {psnr} (init {psnr_init})")
+    return launches
+
+
+_PALLAS = "burn_raymarching_tpu/ops/pallas/"
+_CSRC = "burn_raymarching_tpu_torch/csrc/"
+SOURCES = {
+    "march_shade": (_CSRC + "march_shade.cu",
+                    _PALLAS + "march_shade_kernel.py:192"),
+    "shade_fwd": (_CSRC + "shade.cu", _PALLAS + "shade_kernel.py:265"),
+    "shade_bwd": (_CSRC + "shade.cu", _PALLAS + "shade_kernel.py:283"),
+    "shade_reduce": (_CSRC + "shade.cu", _PALLAS + "shade_kernel.py:283"),
+    "culled_march": (_CSRC + "culled_march.cu",
+                     _PALLAS + "culled_march_kernel.py:154"),
+    "repulsion_fwd": (_CSRC + "repulsion.cu",
+                      _PALLAS + "repulsion_kernel.py:205"),
+    "repulsion_bwd": (_CSRC + "repulsion.cu",
+                      _PALLAS + "repulsion_kernel.py:227"),
+    "repulsion_reduce": (_CSRC + "repulsion.cu",
+                         _PALLAS + "repulsion_kernel.py:227"),
+}
 
 
 def main() -> int:
@@ -410,7 +814,13 @@ def main() -> int:
     name = phase_device(torch)
     phase_build()
     kernels = phase_kernels(torch, dev)
-    phase_generate_and_train(torch, kernels)
+    kernels.update(phase_kernels_c4(torch, dev))
+    launches = phase_generate_and_train(torch)
+    launches.update(phase_c4(torch))
+    print(json.dumps({"kernels": [
+        {"name": k, "route": "cuda", "source": SOURCES[k][0],
+         "replaces": SOURCES[k][1], "launches": launches[k], **kernels[k]}
+        for k in SOURCES]}), flush=True)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     print(json.dumps({"ok": True, "device": {

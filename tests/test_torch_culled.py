@@ -1,0 +1,284 @@
+"""render/culled + K3: the port's culled march, its K3 wrapper and the culled
+differentiable renderer against the JAX package's, on the same inputs.
+
+On the CPU the K3 wrapper runs its plain version (culled_march_normals_xla),
+so both are held against JAX's culled_march_normals_xla and against the
+Pallas kernel in interpret mode (as tests/test_culled_kernel.py runs it).
+t on rays that hit (t < 10): rtol/atol 1e-5; on all rays |dt|/(1+t) <=
+5e-4 — a ray that grazes a sphere converges slowly, and 40 steps amplify
+float32 rounding there (1.4e-4 seen at t = 13). Normals on rays that hit:
+atol 2e-3. They are differences of two soft-mins 2e-4 apart, each carrying
+the expanded form's cancellation error, ~ulp(|p|^2) = 2.4e-7, which the
+1/(2 eps) difference turns into ~1e-3 (1.3e-3 seen): XLA's dot and
+torch.bmm round differently. Renders: rtol 1e-4 with atol 5e-4, as
+tests/test_torch_render.py holds render_tiled (the normals' noise moves the
+shading of grazing pixels); gradients: rtol 1e-3 with atol 2e-3 of the
+largest entry — near-miss rays keep coverage sigmoid(-60 d) ~ 1e-3 while
+their normals are rounding-noise directions (1.2e-3 of the largest color
+gradient seen). The cuda-marked tests hold the CUDA
+kernel against the plain version on a GPU.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch_parity import cuda_device, nn, tt  # noqa: F401
+
+from burn_raymarching_tpu.data.camera import create_camera_rays as j_rays
+from burn_raymarching_tpu.ops import culling as jc
+from burn_raymarching_tpu.ops.pallas.culled_march_kernel import (
+    culled_march_normals_pallas,
+)
+from burn_raymarching_tpu.render import culled as jr
+from burn_raymarching_tpu.render.preview import CullRender as JCullRender
+from burn_raymarching_tpu.render.preview import render_tiled as j_tiled
+from burn_raymarching_tpu.models.scene import SceneParams as JParams
+from burn_raymarching_tpu.utils.morton import morton_permutation
+from burn_raymarching_tpu_torch.models.scene import SceneParams
+from burn_raymarching_tpu_torch.ops import culling as tc
+from burn_raymarching_tpu_torch.ops.cuda import culled_march_kernel as k3
+from burn_raymarching_tpu_torch.render import culled as tr
+from burn_raymarching_tpu_torch.render.preview import CullRender, render_tiled
+
+TILE = 64
+BUDGET = 8
+SMOOTH_K = 18.5
+
+
+@pytest.fixture(scope="module")
+def scene():
+    """A Morton-ordered 16x16 view (4 tiles of 64) and 12 primitives, the
+    last two masked out."""
+    ro, rd = j_rays(16, 16, [0.0, 0.5, -2.5], [0.0, 0.0, 0.0], 50.0)
+    perm = morton_permutation(16, 16)
+    rng = np.random.default_rng(7)
+    m = 12
+    return dict(
+        ro=np.asarray(ro)[perm], rd=np.asarray(rd)[perm],
+        centers=rng.normal(0, 0.35, (m, 3)).astype(np.float32),
+        radii=(0.05 + 0.15 * rng.random((m, 1))).astype(np.float32),
+        colors=rng.random((m, 3)).astype(np.float32),
+        light=np.asarray([0.3, 1.0, -0.4], np.float32),
+        ambient=np.asarray([0.2], np.float32),
+        mask=np.arange(m) < 10)
+
+
+def _tables(s):
+    """JAX selection + gathered tables, as numpy."""
+    cones = jc.tile_cones(jnp.asarray(s["ro"]), jnp.asarray(s["rd"]), TILE)
+    idx, valid = jc.select_tile_primitives(
+        cones, jnp.asarray(s["centers"]), jnp.asarray(s["radii"]), SMOOTH_K,
+        BUDGET, mask=jnp.asarray(s["mask"]))
+    cs, _, rs, qs = jc.gather_tile_tables(
+        jnp.asarray(s["centers"]), jnp.asarray(s["colors"]),
+        jnp.asarray(s["radii"]), idx, valid)
+    b = s["ro"].shape[0] // TILE
+    return (s["ro"].reshape(b, TILE, 3), s["rd"].reshape(b, TILE, 3),
+            np.asarray(cs), np.asarray(rs), np.asarray(qs))
+
+
+def _check(got, want, normal_atol=2e-3):
+    (t_g, n_g), (t_w, n_w) = got, want
+    t_g, t_w, n_w = nn(t_g), np.asarray(t_w), np.asarray(n_w)
+    hit = t_w[..., 0] < 10.0
+    assert hit.sum() > 20
+    np.testing.assert_allclose(t_g[hit], t_w[hit], rtol=1e-5, atol=1e-5)
+    assert (np.abs(t_g - t_w) / (1.0 + np.abs(t_w))).max() <= 5e-4
+    np.testing.assert_allclose(nn(n_g)[hit], n_w[hit], atol=normal_atol)
+
+
+@pytest.mark.parametrize("fn", [tr.culled_march_normals_xla,
+                                k3.culled_march_normals])
+def test_cold_march_matches_jax(scene, fn):
+    ro3, rd3, cs, rs, qs = _tables(scene)
+    want = jr.culled_march_normals_xla(*(jnp.asarray(x) for x in
+                                         (ro3, rd3, cs, rs, qs)), SMOOTH_K)
+    got = fn(tt(ro3), tt(rd3), tt(cs), tt(rs), tt(qs), SMOOTH_K)
+    _check(got, want)
+
+
+def test_warm_march_matches_jax_kernel(scene):
+    """16 steps from 0.8 t_cold, against the Pallas kernel (interpret)."""
+    ro3, rd3, cs, rs, qs = _tables(scene)
+    kern = functools.partial(culled_march_normals_pallas, interpret=True,
+                             tile_t=TILE)
+    args = [jnp.asarray(x) for x in (ro3, rd3, cs, rs, qs)]
+    t_cold, _ = kern(*args, SMOOTH_K)
+    t0 = (0.8 * np.asarray(t_cold)).astype(np.float32)
+    want = kern(*args, SMOOTH_K, num_steps=16, t_init=jnp.asarray(t0))
+    got = k3.culled_march_normals(tt(ro3), tt(rd3), tt(cs), tt(rs), tt(qs),
+                                  SMOOTH_K, num_steps=16, t_init=tt(t0))
+    _check(got, want)
+
+
+def _render_args(s, lib):
+    if lib == "jax":
+        arr = jnp.asarray
+        return ([arr(s[k]) for k in ("ro", "rd")],
+                [arr(s[k]) for k in ("centers", "colors", "radii", "light",
+                                     "ambient")], arr(s["mask"]))
+    return ([tt(s[k]) for k in ("ro", "rd")],
+            [tt(s[k]).requires_grad_() for k in ("centers", "colors", "radii",
+                                                 "light", "ambient")],
+            tt(s["mask"]))
+
+
+def _jax_value_and_grads(s, cot, **kw):
+    (ro, rd), params, mask = _render_args(s, "jax")
+
+    def f(*p):
+        out = jr.render_diff_culled(ro, rd, *p, SMOOTH_K, mask=mask,
+                                    tile=TILE, k_budget=BUDGET,
+                                    softmax_sharpness=40.0,
+                                    mask_sharpness=60.0, **kw)
+        return jnp.sum(out * cot), out
+
+    (_, out), grads = jax.value_and_grad(f, argnums=tuple(range(5)),
+                                         has_aux=True)(*params)
+    return np.asarray(out), [np.asarray(g) for g in grads]
+
+
+def _torch_value_and_grads(s, cot, **kw):
+    (ro, rd), params, mask = _render_args(s, "torch")
+    out = tr.render_diff_culled(ro, rd, *params, SMOOTH_K, mask=mask,
+                                tile=TILE, k_budget=BUDGET,
+                                softmax_sharpness=40.0, mask_sharpness=60.0,
+                                **kw)
+    grads = torch.autograd.grad(torch.sum(out * tt(cot)), params)
+    return nn(out), [nn(g) for g in grads]
+
+
+def _compare(got, want):
+    (out_g, grads_g), (out_w, grads_w) = got, want
+    np.testing.assert_allclose(out_g, out_w, rtol=1e-4, atol=5e-4)
+    assert np.abs(out_w).max() > 0.05
+    for name, g, w in zip(("centers", "colors", "radii", "light", "ambient"),
+                          grads_g, grads_w):
+        np.testing.assert_allclose(g, w, rtol=1e-3,
+                                   atol=2e-3 * np.abs(w).max() + 1e-9,
+                                   err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def cot(scene):
+    rng = np.random.default_rng(1)
+    return rng.normal(0, 1, scene["ro"].shape).astype(np.float32)
+
+
+def test_render_diff_culled_self_selecting_matches_jax(scene, cot):
+    _compare(_torch_value_and_grads(scene, cot),
+             _jax_value_and_grads(scene, cot))
+
+
+def test_render_diff_culled_with_kernel_wrapper_matches_jax(scene, cot):
+    """march_normal_fn = the K3 wrapper (plain version on the CPU)."""
+    _compare(_torch_value_and_grads(
+        scene, cot, march_normal_fn=k3.culled_march_normals),
+        _jax_value_and_grads(scene, cot))
+
+
+def test_render_diff_culled_hierarchical_matches_jax(scene, cot):
+    c, mask = scene["centers"], scene["mask"]
+    _compare(_torch_value_and_grads(
+        scene, cot, clusters=tc.build_clusters(c, mask=mask, group=4),
+        cluster_budget=2),
+        _jax_value_and_grads(
+            scene, cot, clusters=jc.build_clusters(c, mask=mask, group=4),
+            cluster_budget=2))
+
+
+def test_render_diff_culled_precomputed_matches_jax(scene, cot):
+    """The training step's path: selection + march outside, tail only."""
+    ro3, rd3, cs, rs, qs = _tables(scene)
+    cones = jc.tile_cones(jnp.asarray(scene["ro"]), jnp.asarray(scene["rd"]),
+                          TILE)
+    idx, valid = jc.select_tile_primitives(
+        cones, jnp.asarray(scene["centers"]), jnp.asarray(scene["radii"]),
+        SMOOTH_K, BUDGET, mask=jnp.asarray(scene["mask"]))
+    t0 = np.full(ro3.shape[:2] + (1,), 1.5, np.float32)
+    t, normal = jr.culled_march_normals_xla(
+        *(jnp.asarray(x) for x in (ro3, rd3, cs, rs, qs)), SMOOTH_K,
+        num_steps=16, t_init=jnp.asarray(t0))
+    pre_j = (idx, valid, t, normal)
+    pre_t = (tt(idx).long(), tt(valid), tt(t), tt(normal))
+    _compare(_torch_value_and_grads(scene, cot, precomputed=pre_t),
+             _jax_value_and_grads(scene, cot, precomputed=pre_j))
+
+
+def test_render_tiled_culled_morton_matches_jax(scene):
+    s = scene
+    ro, rd = j_rays(16, 16, [0.3, 0.4, -2.2], [0.0, 0.0, 0.0], 50.0)
+    raw = {"centers": s["centers"], "colors": np.zeros_like(s["colors"]),
+           "radii": np.log(np.expm1(s["radii"])), "light_dir": s["light"],
+           "ambient": np.asarray([-1.4], np.float32)}
+    kw = dict(smooth_k=SMOOTH_K, chunk=128, order_wh=(16, 16))
+    want = j_tiled(JParams(**{k: jnp.asarray(v) for k, v in raw.items()}),
+                   ro, rd, mask=jnp.asarray(s["mask"]),
+                   cull=JCullRender(tile=TILE, k_budget=BUDGET), **kw)
+    got = render_tiled(SceneParams(*(raw[k] for k in (
+        "centers", "colors", "radii", "light_dir", "ambient"))),
+        tt(ro), tt(rd), mask=tt(s["mask"]),
+        cull=CullRender(tile=TILE, k_budget=BUDGET,
+                        march_normal_fn=k3.culled_march_normals), **kw)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-4, atol=5e-4)
+
+
+# --- CUDA kernel against its plain version (GPU only) ------------------- #
+
+def _cuda_case(dev, b, t_dim, k_dim, seed):
+    """Tile-coherent rays toward a random sphere cloud and random tables
+    with ~10% invalid slots."""
+    rng = np.random.default_rng(seed)
+    ro, rd = j_rays(64, 64, [0.0, 0.4, -2.2], [0.0, 0.0, 0.0], 50.0)
+    perm = morton_permutation(64, 64)[: b * t_dim]
+    ro = tt(np.asarray(ro)[perm]).reshape(b, t_dim, 3).to(dev)
+    rd = tt(np.asarray(rd)[perm]).reshape(b, t_dim, 3).to(dev)
+    cs = torch.as_tensor(rng.normal(0, 0.3, (b, k_dim, 3)),
+                         dtype=torch.float32, device=dev)
+    rs = torch.as_tensor(0.02 + 0.05 * rng.random((b, k_dim)),
+                         dtype=torch.float32, device=dev)
+    valid = torch.as_tensor(rng.random((b, k_dim)) > 0.1, device=dev)
+    qs = torch.where(valid, torch.sum(cs * cs, dim=2),
+                     torch.full_like(rs, 1e30))
+    return ro, rd, cs, rs, qs
+
+
+def _march_gaps(t_a, n_a, t_b, n_b, hit):
+    """(max |dt| on hit rays, max |dt|/(1+t) on all, max |dn| on hit)."""
+    dt = (t_a - t_b.to(t_a.dtype)).abs()[..., 0]
+    rel = dt / (1.0 + t_b.to(t_a.dtype)[..., 0].abs())
+    return (dt[hit].max().item(), rel.max().item(),
+            (n_a - n_b.to(n_a.dtype))[hit].abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_dim", [300, 5000])
+def test_cuda_kernel_matches_plain(cuda_device, k_dim):
+    """K = 300 keeps the table resident; K = 5000 > 4096 stages it chunk by
+    chunk (and opts in to > 48 KB of shared memory). At k = 128 around
+    spheres of radius 0.02-0.07 the march's float32 noise reaches ~1e-2 in
+    the normals, so each gap to the plain version is held to 5x the plain
+    version's own gap to the same march in float64, plus 1e-5."""
+    args = _cuda_case(cuda_device, 4, 256, k_dim, k_dim)
+    args64 = [a.double() for a in args]
+    t_init = None
+    for steps in (40, 16):
+        kw = dict(num_steps=steps, t_init=t_init)
+        t_p, n_p = tr.culled_march_normals_xla(*args, 128.0, **kw)
+        t_64, n_64 = tr.culled_march_normals_xla(
+            *args64, 128.0, num_steps=steps,
+            t_init=None if t_init is None else t_init.double())
+        before = k3.culled_march_normals.launches
+        t_k, n_k = k3.culled_march_normals(*args, 128.0, **kw)
+        torch.cuda.synchronize()
+        assert k3.culled_march_normals.launches == before + 1
+        hit = t_64[..., 0] < 10.0
+        assert int(hit.sum()) > 50
+        noise = _march_gaps(t_p, n_p, t_64, n_64, hit)
+        for gap, tol in zip(_march_gaps(t_k, n_k, t_p, n_p, hit), noise):
+            assert gap <= 5.0 * tol + 1e-5, (steps, gap, noise)
+        t_init = t_p * 0.8

@@ -1,5 +1,6 @@
 """The port imports and renders with JAX blocked, and reaches into the JAX
-package only for its JAX-free config and utils modules."""
+package only for its JAX-free config and utils modules (padding, metrics,
+and the NumPy-only Morton orders)."""
 
 import os
 import subprocess
@@ -26,7 +27,8 @@ out = scene_forward(padded, ro, rd, 18.5, mask=mask)
 assert out.shape == (16, 3) and bool(torch.isfinite(out).all())
 allowed = {"burn_raymarching_tpu", "burn_raymarching_tpu.config",
            "burn_raymarching_tpu.utils", "burn_raymarching_tpu.utils.padding",
-           "burn_raymarching_tpu.utils.metrics"}
+           "burn_raymarching_tpu.utils.metrics",
+           "burn_raymarching_tpu.utils.morton"}
 jax_pkg = {m for m in sys.modules if m == "burn_raymarching_tpu"
            or m.startswith("burn_raymarching_tpu.")}
 assert jax_pkg <= allowed, sorted(jax_pkg - allowed)
