@@ -2,12 +2,16 @@
 
 The JAX package (``burn_raymarching_tpu``) stays the reference; this package
 mirrors its module paths and function names so each module's counterpart is
-found by name. Plain tensor code is PyTorch; the two Pallas kernels on the
-config-1 training path are hand-written CUDA C++ for Hopper (``csrc/``),
-built with nvcc at first use and bound with ctypes (``ops/cuda/``).
+found by name. It imports nothing of the JAX package: ``config`` and
+``utils`` are its own copies. Plain tensor code is PyTorch; the four Pallas
+kernels are hand-written CUDA C++ for Hopper (``csrc/``), built with nvcc at
+first use and bound with ctypes (``ops/cuda/``).
 
 Layer map:
-  ops/       — SDF math, soft-min, march; ops/cuda: K1 march+normals, K2 shade
+  config     — the four configuration dataclasses
+  utils/     — padding buckets, Morton pixel orders, metrics logger
+  ops/       — SDF math, soft-min, march, culling; ops/cuda: K1 march+normals,
+               K2 shade, K3 culled march, K4 cluster repulsion
   models/    — SceneParams (nn.Module of raw params) + activations + forward
   render/    — differentiable + ground-truth renderers, tiled previews
   data/      — cameras, ray dataset + sampling, PNG (stdlib) and scene I/O

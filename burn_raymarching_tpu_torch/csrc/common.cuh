@@ -3,9 +3,23 @@
 // Numerics follow the JAX package (burn_raymarching_tpu/ops/sdf.py): fp32
 // throughout, the expanded distance form max(|p|^2 + |c|^2 - 2 p.c, 1e-6)
 // with the K=3 dot product written as FMAs (no tensor cores: TF32 would
-// corrupt the distance field), full-precision sqrtf/expf/logf (the build
-// passes no --use_fast_math), and 1e30 in the |c|^2 slot of masked
-// primitives so their distances are ~1e15 and their exp terms exactly 0.
+// corrupt the distance field), no --use_fast_math, and 1e30 in the |c|^2
+// slot of masked primitives so their distances are ~1e15 and their exp terms
+// exactly 0.
+//
+// The second half of this file is the core that the two march kernels share
+// (K1 march_shade.cu, K3 culled_march.cu): a primitive table staged in shared
+// memory as float4 (-2cx, -2cy, -2cz, |c|^2) plus one float (r, or r*k for
+// K1), a one-pass (online) soft-min of R points per lane group against it,
+// and the march + reattach + 6-tap normals of R rays per lane group.
+//
+// What bounds that core: not bytes (a ray is 6-7 floats in and 4 out, a
+// table a few KB to 40 KB, staged once per block). Per (point, primitive)
+// pair the work needs one sqrt and one exp on the SFU, 16 lanes per clock
+// per SM: 132 SMs at ~1.98 GHz give ~4.2e12 per second, so a pair costs at
+// least 2 / 4.2e12 s. Around them stand ~20 FP32 operations per pair, one
+// issue slot each (1 per clock per scheduler), which puts the issue rate at
+// about twice that time; measured, the kernels reach ~40% of the SFU bound.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -42,48 +56,232 @@ __device__ __forceinline__ float expanded_q(float px, float py, float pz,
   return (psq + csq) - 2.0f * pdc;
 }
 
-// Copies columns [c0, c0 + len) of a row-major [5, m] table (rows cx, cy, cz,
-// r, |c|^2) into a [5, cap] shared-memory array. Every thread of the block
-// must call it: it synchronises before and after the copy.
-__device__ __forceinline__ void stage_table(const float* __restrict__ prim,
-                                            int m, int c0, int len,
-                                            float* tab, int cap) {
+// ---------------------------------------------------------------------------
+// The march core (K1 and K3).
+//
+// The per-pair sqrt and exp are the SFU's own sqrt and 2^x (sqrt.approx.ftz,
+// ex2.approx.ftz of x log2(e)): ~2 ulp each, below the float32 noise the
+// expanded form already carries near a surface (ulp(|p|^2) ~ 1e-7 against
+// q ~ 1e-3), and judged by the float64 march in chip_smoke.py; sqrtf/expf
+// measured 1.6x slower on an H100 with the same gap to float64. The
+// per-evaluation log, the lane rescale and the normal's sqrt are full
+// precision.
+#define MARCH_T_MAX 1e4f
+// |c|^2 at or above this marks a masked slot (the wrappers write 1e30).
+#define MARCH_MASKED_CSQ 1e29f
+
+__device__ __forceinline__ float pair_sqrt(float q) {
+  float r;
+  asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(q));  // q >= 1e-6
+  return r;
+}
+
+// exp(x) for x <= 0. A denormal result is flushed to 0, which the sums
+// cannot tell from it: they hold a term >= 1, and anything under 2^-24 of
+// that is rounded away.
+__device__ __forceinline__ float pair_exp(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x * 1.4426950408889634f));
+  return r;
+}
+
+// xor butterflies over the L lanes of a group (L a power of two <= 32, the
+// groups aligned in the warp): every lane of the group ends with the same
+// value, bitwise, in a fixed order.
+template <int L>
+__device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+  for (int o = L / 2; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(FULL_MASK, v, o));
+  return v;
+}
+
+template <int L>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = L / 2; o > 0; o >>= 1) v += __shfl_xor_sync(FULL_MASK, v, o);
+  return v;
+}
+
+// One block's primitive table. ``g`` is the global [m, 5] array with rows
+// (cx, cy, cz, |c|^2, rr); ``n`` the columns to visit (see live_columns);
+// cq/rr the shared-memory copy of up to ``cap`` columns.
+struct MarchTable {
+  const float* __restrict__ g;
+  int n;
+  float4* cq;
+  float* rr;
+  int cap;
+  bool resident;  // columns [0, n) are staged once and stay
+};
+
+// Number of leading columns that hold every unmasked slot: 1 + the last
+// column with |c|^2 < MARCH_MASKED_CSQ, or m when every slot is masked (the
+// soft-min of an all-masked table is the masked distance itself). The
+// trailing columns are all masked; each adds exactly 0 to a sum whose max
+// comes from an unmasked column, so the march never visits them. Every
+// thread of the block must call it (``scratch`` is one shared int).
+__device__ __forceinline__ int live_columns(const float* __restrict__ g, int m,
+                                            int* scratch) {
+  if (threadIdx.x == 0) *scratch = 0;
   __syncthreads();
+  int last = 0;
+  for (int j = threadIdx.x; j < m; j += blockDim.x)
+    if (g[5 * j + 3] < MARCH_MASKED_CSQ) last = j + 1;
+  if (last > 0) atomicMax(scratch, last);  // integer max: order-free
+  __syncthreads();
+  const int n = *scratch;
+  return n > 0 ? n : m;
+}
+
+// Stages columns [c0, c0 + len) of the global table into shared memory,
+// scaling the center by -2 (exact), so that per pair
+//   q = (|p|^2 + |c|^2) + fma(px, cx', fma(py, cy', pz cz'))
+// is bitwise (|p|^2 + |c|^2) - 2 p.c and costs one 128-bit and one 32-bit
+// shared load per column. Global reads are coalesced over the 5 len floats.
+// Every thread of the block must call it: it synchronises before and after.
+__device__ __forceinline__ void stage_columns(const MarchTable& tab, int c0,
+                                              int len) {
+  __syncthreads();
+  const float* src = tab.g + (size_t)5 * c0;
+  float* cq = reinterpret_cast<float*>(tab.cq);
   for (int i = threadIdx.x; i < 5 * len; i += blockDim.x) {
-    const int row = i / len;
-    const int col = i - row * len;
-    tab[row * cap + col] = prim[row * m + c0 + col];
+    const int col = i / 5;
+    const int f = i - 5 * col;
+    const float v = src[i];
+    if (f < 3) cq[4 * col + f] = -2.0f * v;
+    else if (f == 3) cq[4 * col + 3] = v;
+    else tab.rr[col] = v;
   }
   __syncthreads();
 }
 
-// Soft-min of one point per warp against a [5, m] table:
-// (log(max(sum exp(val - mx), 1e-8)) + mx) / (-k), with mx the exact row max
-// (first pass) and the sum in a second pass, because dropping the max
-// underflows far rays. ``val(tab, cap, j)`` gives the logit of column j of
-// the staged [5, cap] shared table. The lanes stride over the columns and
-// both reductions are xor butterflies, so every lane returns the same value.
-// With ``resident`` the whole table is already staged; otherwise it is staged
-// chunk by chunk, so every thread of the block must make the same calls.
-template <class Val>
-__device__ __forceinline__ float softmin_two_pass(const Val& val,
-                                                  const float* __restrict__ prim,
-                                                  int m, float* tab, int cap,
-                                                  bool resident, int lane,
-                                                  float k) {
-  float mx = -INFINITY;
-  for (int c0 = 0; c0 < m; c0 += cap) {
-    const int len = min(cap, m - c0);
-    if (!resident) stage_table(prim, m, c0, len, tab, cap);
-    for (int j = lane; j < len; j += 32) mx = fmaxf(mx, val(tab, cap, j));
+// Soft-min of R points per lane group against the table, in one pass:
+//   out = (log(max(sum_j exp(v_j - mx), 1e-8)) + mx) / (-k),  mx = max_j v_j,
+// with v_j = (sqrt(q_j) - r_j) (-k) (K3's order), or with FOLD
+// v_j = sqrt(q_j) (-k) + r_j k (K1's k r fold; the table holds r k).
+// Each lane keeps a running max m and a sum s relative to it: a column with
+// d = v - m adds e = exp(-|d|) as s + e, or as s e + 1 when it raises the
+// max: one sqrt and one exp per pair, and a max is subtracted before every
+// exp (dropping it underflows far rays). The L lanes of a group stride over
+// the columns, each column is loaded once for the group's R points, and the
+// lanes' (m, s) are merged by xor butterflies, so every lane of a group
+// returns the same values. It differs from the two-pass form by float32
+// rounding only. A far column's term is exactly 0 after the exp (s >= 1
+// swallows anything under 2^-24), so a test that skips its exp changes no
+// bit, but it was measured slower than the exp it saves (a warp skips only
+// when all its pairs of a column step are far) and is not made. Unless the
+// table is resident it is staged chunk by chunk,
+// so every thread of the block must make the same calls.
+template <int L, int R, bool FOLD>
+__device__ __forceinline__ void softmin_points(const MarchTable& tab, int g,
+                                               const float (&px)[R],
+                                               const float (&py)[R],
+                                               const float (&pz)[R], float k,
+                                               float (&out)[R]) {
+  float psq[R], m[R], s[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    psq[i] = sq_norm3(px[i], py[i], pz[i]);
+    m[i] = -INFINITY;
+    s[i] = 0.0f;
   }
-  mx = warp_max(mx);
-  float s = 0.0f;
-  for (int c0 = 0; c0 < m; c0 += cap) {
-    const int len = min(cap, m - c0);
-    if (!resident) stage_table(prim, m, c0, len, tab, cap);
-    for (int j = lane; j < len; j += 32) s += expf(val(tab, cap, j) - mx);
+  for (int c0 = 0; c0 < tab.n; c0 += tab.cap) {
+    const int len = min(tab.cap, tab.n - c0);
+    if (!tab.resident) stage_columns(tab, c0, len);
+    for (int j = g; j < len; j += L) {
+      const float4 c = tab.cq[j];
+      const float rr = tab.rr[j];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float q = fmaxf(
+            (psq[i] + c.w) + fmaf(px[i], c.x, fmaf(py[i], c.y, pz[i] * c.z)),
+            1e-6f);
+        const float v = FOLD ? fmaf(pair_sqrt(q), -k, rr)
+                             : (pair_sqrt(q) - rr) * (-k);
+        const float d = v - m[i];
+        const float e = pair_exp(-fabsf(d));
+        s[i] = d > 0.0f ? fmaf(s[i], e, 1.0f) : s[i] + e;
+        m[i] = fmaxf(m[i], v);
+      }
+    }
   }
-  s = warp_sum(s);
-  return (logf(fmaxf(s, 1e-8f)) + mx) / (-k);
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const float mx = group_max<L>(m[i]);
+    // A lane that saw no column holds (m, s) = (-inf, 0): 0 * exp(-inf) = 0.
+    const float sum = group_sum<L>(L > 1 ? s[i] * expf(m[i] - mx) : s[i]);
+    out[i] = (logf(fmaxf(sum, 1e-8f)) + mx) / (-k);
+  }
+}
+
+// The whole per-ray work of K1 and K3 for the R rays of one lane group:
+// num_steps iterations t <- min(t + softmin(ro + rd t), 1e4) from t0 (or 0),
+// one more soft-min giving p_final = ro + rd (t + d), then 6-tap
+// central-difference normals with +1e-6 inside the sqrt. ``ray[i]`` indexes
+// ro/rd/t0/t_out/n_out; rays with ``store[i]`` false are marched (block
+// barriers stay uniform) and not written. Lane ``g`` == 0 writes.
+template <int L, int R, bool FOLD>
+__device__ __forceinline__ void march_rays(
+    const MarchTable& tab, int g, const float* __restrict__ ro,
+    const float* __restrict__ rd, const float* __restrict__ t0,
+    const size_t (&ray)[R], const bool (&store)[R], float k, int num_steps,
+    float eps, float* __restrict__ t_out, float* __restrict__ n_out) {
+  float ox[R], oy[R], oz[R], dx[R], dy[R], dz[R], t[R];
+  float px[R], py[R], pz[R], sm[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    ox[i] = ro[3 * ray[i]], oy[i] = ro[3 * ray[i] + 1], oz[i] = ro[3 * ray[i] + 2];
+    dx[i] = rd[3 * ray[i]], dy[i] = rd[3 * ray[i] + 1], dz[i] = rd[3 * ray[i] + 2];
+    t[i] = t0 != nullptr ? t0[ray[i]] : 0.0f;
+  }
+  // One more pass than num_steps: the last gives the reattach distance.
+  for (int it = 0; it <= num_steps; ++it) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      px[i] = ox[i] + dx[i] * t[i];
+      py[i] = oy[i] + dy[i] * t[i];
+      pz[i] = oz[i] + dz[i] * t[i];
+    }
+    softmin_points<L, R, FOLD>(tab, g, px, py, pz, k, sm);
+    if (it < num_steps) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) t[i] = fminf(t[i] + sm[i], MARCH_T_MAX);
+    }
+  }
+  // Detached reattach point -> p_final, kept in (ox, oy, oz).
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const float tf = t[i] + sm[i];
+    ox[i] += dx[i] * tf, oy[i] += dy[i] * tf, oz[i] += dz[i] * tf;
+  }
+  float nrm[3][R], lo[R];
+#pragma unroll
+  for (int axis = 0; axis < 3; ++axis) {
+#pragma unroll
+    for (int sign = 0; sign < 2; ++sign) {
+      const float h = sign == 0 ? eps : -eps;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        px[i] = axis == 0 ? ox[i] + h : ox[i];
+        py[i] = axis == 1 ? oy[i] + h : oy[i];
+        pz[i] = axis == 2 ? oz[i] + h : oz[i];
+      }
+      softmin_points<L, R, FOLD>(tab, g, px, py, pz, k,
+                                 sign == 0 ? nrm[axis] : lo);
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) nrm[axis][i] -= lo[i];
+  }
+  if (g != 0) return;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if (!store[i]) continue;
+    const float len =
+        sqrtf(sq_norm3(nrm[0][i], nrm[1][i], nrm[2][i]) + 1e-6f);
+    t_out[ray[i]] = t[i];
+    n_out[3 * ray[i]] = nrm[0][i] / len;
+    n_out[3 * ray[i] + 1] = nrm[1][i] / len;
+    n_out[3 * ray[i] + 2] = nrm[2][i] / len;
+  }
 }

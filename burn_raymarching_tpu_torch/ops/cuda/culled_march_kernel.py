@@ -6,8 +6,9 @@ culled_march_normals_pallas).
 for CUDA tensors and runs ``culled_march_normals_xla`` (render/culled.py,
 the plain version) for CPU tensors. There is no fallback: a CUDA tensor
 either goes through the kernel or raises. The kernel keeps the plain
-version's op order (distance first, then ·(−k)); the two differ only by
-float32 rounding, which the 40-step march can amplify on grazing rays.
+version's op order (distance first, then ·(−k)) and sums the soft-min in
+one pass; the two differ only by float32 rounding, which the 40-step march
+can amplify on grazing rays.
 """
 
 from __future__ import annotations
@@ -35,10 +36,11 @@ def _launcher():
 
 def culled_table(cs: torch.Tensor, rs: torch.Tensor, qs: torch.Tensor
                  ) -> torch.Tensor:
-    """[B, 5, K] rows cx, cy, cz, r, |c|² (1e30 in invalid slots)."""
-    return torch.cat([cs.detach().float().transpose(1, 2),
-                      rs.detach().float()[:, None, :],
-                      qs.detach().float()[:, None, :]], dim=1).contiguous()
+    """[B, K, 5] rows (cx, cy, cz, |c|², r), |c|² = 1e30 in invalid slots:
+    one concatenation. The kernel stages it as float4 (−2cx, −2cy, −2cz,
+    |c|²) + r and visits only the columns up to the last valid slot."""
+    return torch.cat([cs.detach().float(), qs.detach().float()[:, :, None],
+                      rs.detach().float()[:, :, None]], dim=2)
 
 
 @torch.no_grad()
@@ -68,7 +70,7 @@ def culled_march_normals(ro3: torch.Tensor, rd3: torch.Tensor,
     if k_dim < 1:
         raise ValueError("culled_march_normals needs at least one table slot")
     prim = culled_table(cs, rs, qs)
-    build.check_cuda_f32("prim", prim, (b, 5, k_dim), dev)
+    build.check_cuda_f32("prim", prim, (b, k_dim, 5), dev)
     t0 = None
     if t_init is not None:
         t0 = t_init.detach().reshape(b, t_dim, 1)

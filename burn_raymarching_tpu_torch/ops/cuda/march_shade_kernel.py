@@ -1,11 +1,13 @@
 """K1: fused detached march + normals (port of
 burn_raymarching_tpu/ops/pallas/march_shade_kernel.py::march_shade_pallas).
 
-``march_shade`` launches the CUDA kernel in csrc/march_shade.cu for CUDA
-tensors and runs ``march_shade_plain`` (the march of ops/march.py plus
-ops/sdf.scene_normal) for CPU tensors. There is no fallback: a CUDA tensor
-either goes through the kernel or raises. The kernel folds k*r like the TPU
-kernel, so it matches the plain version within a tolerance, not bitwise.
+``march_shade`` launches the CUDA kernels in csrc/march_shade.cu for CUDA
+tensors (one small kernel packs the primitive table, one marches) and runs
+``march_shade_plain`` (the march of ops/march.py plus ops/sdf.scene_normal)
+for CPU tensors. There is no fallback: a CUDA tensor either goes through the
+kernels or raises. The march kernel folds k*r like the TPU kernel and sums
+the soft-min in one pass, so it matches the plain version within a
+tolerance, not bitwise.
 """
 
 from __future__ import annotations
@@ -23,12 +25,17 @@ from burn_raymarching_tpu_torch.ops.sdf import scene_normal, scene_sdf
 _P = ctypes.c_void_p
 
 
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
 @functools.cache
-def _launcher():
+def _launchers():
     lib = build.load_library("march_shade")
-    return build.bind(lib, "march_shade_launch", [
-        _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_int, ctypes.c_float, _P, _P, _P])
+    march = build.bind(lib, "march_shade_launch", [
+        _P, _P, _P, _P, _I, _I, _F, _I, _F, _P, _P, _P])
+    pack = build.bind(lib, "march_pack_launch", [_P, _P, _P, _I, _F, _P, _P])
+    return march, pack
 
 
 @torch.no_grad()
@@ -48,16 +55,49 @@ def march_shade_plain(ray_org, ray_dir, centers, radii, smooth_k,
 
 
 def march_table(centers: torch.Tensor, radii: torch.Tensor,
-                mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """[5, M] rows cx, cy, cz, r, |c|^2 with 1e30 in masked slots."""
+                mask: Optional[torch.Tensor], smooth_k) -> torch.Tensor:
+    """Plain version of the table pack → [M, 5] rows (cx, cy, cz, |c|², r·k),
+    |c|² = (x² + y²) + z² with 1e30 in masked slots. The march kernel stages
+    it as float4 (−2cx, −2cy, −2cz, |c|²) + r·k."""
     m = centers.shape[0]
     c = centers.detach().reshape(m, 3).float()
-    r = radii.detach().reshape(m).float()
-    c_sq = torch.sum(c * c, dim=1)
+    x, y, z = c.unbind(dim=1)
+    c_sq = (x * x + y * y) + z * z
     if mask is not None:
-        c_sq = torch.where(mask.reshape(m).bool(), c_sq,
-                           torch.full_like(c_sq, 1e30))
-    return torch.cat([c.T, r[None, :], c_sq[None, :]], dim=0).contiguous()
+        c_sq = torch.where(mask.reshape(m).bool(), c_sq, 1e30)
+    rk = radii.detach().reshape(m).float() * float(smooth_k)
+    return torch.cat([c, c_sq[:, None], rk[:, None]], dim=1)
+
+
+@torch.no_grad()
+def pack_march_table(centers: torch.Tensor, radii: torch.Tensor,
+                     mask: Optional[torch.Tensor], smooth_k) -> torch.Tensor:
+    """``march_table`` in one kernel launch for CUDA tensors (bitwise the
+    plain version), the plain version for CPU tensors."""
+    if centers.device.type == "cpu":
+        return march_table(centers, radii, mask, smooth_k)
+    dev = centers.device
+    m = centers.shape[0]
+    c = centers.detach()
+    r = radii.detach().reshape(m)
+    build.check_cuda_f32("centers", c, (m, 3), dev)
+    build.check_cuda_f32("radii", r, (m,), dev)
+    mask_u8 = None
+    if mask is not None:
+        mask_u8 = mask.reshape(m).bool().view(torch.uint8)
+        if mask_u8.device != dev or not mask_u8.is_contiguous():
+            raise ValueError("mask must be a contiguous tensor on the "
+                             "centers' device")
+    out = torch.empty((m, 5), dtype=torch.float32, device=dev)
+    _, launch_pack = _launchers()
+    err = launch_pack(build.ptr(c), build.ptr(r), build.ptr(mask_u8), m,
+                      float(smooth_k), build.ptr(out), build.stream_ptr(dev))
+    build.check(err, "march_pack kernel launch")
+    pack_march_table.launches += 1
+    return out
+
+
+pack_march_table.launches = 0
 
 
 @torch.no_grad()
@@ -85,20 +125,21 @@ def march_shade(ray_org: torch.Tensor, ray_dir: torch.Tensor,
     build.check_cuda_f32("ray_dir", ray_dir, (n, 3), dev)
     if m < 1:
         raise ValueError("march_shade needs at least one primitive")
-    prim = march_table(centers, radii, mask)
-    build.check_cuda_f32("prim", prim, (5, m), dev)
+    if n == 0:
+        return (torch.empty((0, 1), dtype=torch.float32, device=dev),
+                torch.empty((0, 3), dtype=torch.float32, device=dev))
+    prim = pack_march_table(centers, radii, mask, smooth_k)
     t0 = None
     if t_init is not None:
         t0 = t_init.detach()
         build.check_cuda_f32("t_init", t0, (n, 1), dev)
     t = torch.empty((n, 1), dtype=torch.float32, device=dev)
     normal = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    if n == 0:
-        return t, normal
-    err = _launcher()(build.ptr(ray_org), build.ptr(ray_dir), build.ptr(t0),
-                      build.ptr(prim), n, m, float(smooth_k), int(num_steps),
-                      float(normal_eps), build.ptr(t), build.ptr(normal),
-                      build.stream_ptr(dev))
+    launch_march, _ = _launchers()
+    err = launch_march(build.ptr(ray_org), build.ptr(ray_dir), build.ptr(t0),
+                       build.ptr(prim), n, m, float(smooth_k), int(num_steps),
+                       float(normal_eps), build.ptr(t), build.ptr(normal),
+                       build.stream_ptr(dev))
     build.check(err, "march_shade kernel launch")
     march_shade.launches += 1
     return t, normal

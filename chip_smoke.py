@@ -12,13 +12,19 @@ non-zero without the final result line:
                    config-1 path's shapes (16,384 rays of the 10-view 256²
                    dango rig, 100 live primitives in a 128-slot table): max
                    abs error against the stated tolerance, and median
-                   CUDA-event times of both;
+                   CUDA-event times of both; K1 also at the narrower tables
+                   config 1 trains at (7 live in 8 slots, 25 in 32), with
+                   its and the plain version's gap to a float64 march; the
+                   kernel that packs K1's table, bitwise against its plain
+                   version;
   4. kernels_c4  — K3 against its plain version at config-4 shapes (32 tiles
                    x 512 rays of the 30-view 512² knot rig, K = 2,048,
                    k = 128, tables from a real selection over 5,120
                    knot-seeded primitives), cold (40 steps) and warm (16
                    steps from 0.8 t_cold), within 5x the plain version's
-                   own float32 error against float64; K4 forward and
+                   own float32 error against float64; its chunked path (8
+                   tiles against 8,192 live columns, more than the resident
+                   table holds) the same way; K4 forward and
                    backward against autograd of the plain versions, member
                    and monopole, at C = 80 (config 4) and C = 800
                    (M = 51,200), with a bitwise repeat check of its
@@ -31,7 +37,9 @@ non-zero without the final result line:
                    scene.json; K1 and K2's launch counters must have grown
                    during it; then the final loss, train-view PSNR and
                    steady-state rays/s of the kernel step and of the
-                   --no-pallas step;
+                   --no-pallas step, and the kernel step's device-busy
+                   time and each hand-written kernel's share of it
+                   (torch.profiler);
   7. generate_c4 — the generator writes the config-4 knot set (30 views at
                    512², 400 GT spheres, GT k 128, sharpness 40);
   8. train_c4    — train_cli with the config-4 recipe (tools/run_c5.py) cut to
@@ -42,8 +50,11 @@ non-zero without the final result line:
                    then steady-state rays/s of the kernel and --no-pallas
                    steps and the kernel step's device-busy share
                    (torch.profiler).
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.
+The line before the last is {"kernels": [...]}: per kernel its launches on
+the training path, error, time, the plain version's time, ``bound_ms`` (the
+least time the card could take, see ``bound``) and ``library_ms`` (one
+PyTorch call computing the same function, where there is one). The last
+line is {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py   (from the repository root; needs one GPU)
 """
@@ -65,6 +76,8 @@ TRAIN_STAGES = 2
 TRAIN_STEPS = 100
 N_RAYS = 16384
 M_LIVE, M_SLOTS = 100, 128
+# The narrower tables config 1 trains at (live primitives, slots).
+K1_NARROW = ((7, 8), (25, 32))
 # Train-view PSNR floor after the short 2 x 100-step run: far below a full
 # run's ~30 dB, far above the ~10 dB of an untrained or broken scene.
 MIN_PSNR_DB = 15.0
@@ -75,6 +88,16 @@ C4_VIEWS, C4_SIZE, C4_GT_N, C4_INIT_N = 30, 512, 400, 5120
 C4_TILES, C4_TILE, C4_BUDGET, C4_K = 32, 512, 2048, 128.0
 # M = 51,200: scripts/bench_large.py's primitive count (C = 800 clusters).
 LARGE_INIT_N = 51200
+# K3's chunked path: tiles x live columns (the resident table holds 4,096).
+CHUNKED_TILES, CHUNKED_K = 8, 8192
+# The card's peak rates for ``bound``: device memory (data sheet, H100 SXM),
+# FP32 outside the tensor cores, and SFU lanes per clock per SM (sqrt, exp,
+# reciprocal), which phase_device scales by the SM count and the maximum SM
+# clock that nvidia-smi reports.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+SFU_LANES_PER_CLK_PER_SM = 16
+CARD = {}
 
 
 def emit(phase: str, **fields) -> None:
@@ -98,11 +121,60 @@ def time_ms(torch, fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def graph_ms(torch, fn, launches: int = 20, reps: int = 5) -> float:
+    """Device time of one ``fn()``: the wrapper call is captured into a CUDA
+    graph ``launches`` times and the graph replayed between CUDA events, so
+    the host's launch work (which exceeds a 0.1 ms kernel's own time) does
+    not enter. Median over ``reps`` replays."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return sorted(times)[len(times) // 2]
+
+
 def check_close(failures: list, name: str, err: float, tol: float) -> None:
     """Record a comparison that is not finite or exceeds its tolerance; the
     phase raises once it has printed all of its numbers."""
     if not math.isfinite(err) or err > tol:
         failures.append(f"{name}: max abs err {err:.3e} > tol {tol:.1e}")
+
+
+def bound(nbytes: float, sfu_ops: float = 0.0, flops: float = 0.0) -> dict:
+    """The least time the card could take for a call: the larger of its
+    bytes (each input read once, each output written once) over the memory
+    rate and its operations over their peak rate: special-function
+    operations (one sqrt, exp or reciprocal each) over the SFU rate, other
+    floating-point operations over the FP32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(sfu_ops / CARD["sfu_per_s"], flops / FP32_FLOP_PER_S)
+    return {"bound_ms": 1000.0 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def march_bound(pairs: float, *tensors) -> dict:
+    """K1 / K3: one sqrt and one exp per (point, live primitive) pair, with
+    ~12 other FP32 operations around them."""
+    return bound(tensor_bytes(*tensors), sfu_ops=2.0 * pairs,
+                 flops=12.0 * pairs)
 
 
 def march_errors(torch, t_k, n_k, t_p, n_p) -> dict:
@@ -115,13 +187,41 @@ def march_errors(torch, t_k, n_k, t_p, n_p) -> dict:
     n_k, n_p = n_k.reshape(-1, 3), n_p.reshape(-1, 3)
     hit = t_p[:, 0] < 10.0
     dt = (t_k - t_p).abs()[:, 0]
+    dn = (n_k - n_p).abs().amax(dim=1)
     return {
         "hit_rays": int(hit.sum()),
         "max_abs_err_t_hit": dt[hit].max().item(),
+        "p50_abs_err_t_hit": torch.quantile(dt[hit], 0.5).item(),
         "p99_abs_err_t_hit": torch.quantile(dt[hit], 0.99).item(),
         "max_rel_err_t_all": (dt / (1.0 + t_p[:, 0].abs())).max().item(),
-        "max_abs_err_normal_hit": (n_k - n_p)[hit].abs().max().item(),
+        "max_abs_err_normal_hit": dn[hit].max().item(),
+        "p50_abs_err_normal_hit": torch.quantile(dn[hit], 0.5).item(),
+        "p99_abs_err_normal_hit": torch.quantile(dn[hit], 0.99).item(),
     }
+
+
+def float64_gaps(torch, t_k, n_k, t_p, n_p, t_64, n_64) -> dict:
+    """The kernel's and the plain float32 version's gaps to the same march
+    in float64 (``march_errors`` of each: maximum, median and 99th
+    percentile over hit rays), and the plain version's gap on the two rays
+    where the kernel's is largest: a worst ray that is ill-conditioned is
+    far off in every float32 rounding, the plain one included."""
+    t_64, n_64 = t_64.float(), n_64.float()
+    out = {"plain_vs_float64": march_errors(torch, t_p, n_p, t_64, n_64),
+           "kernel_vs_float64": march_errors(torch, t_k, n_k, t_64, n_64)}
+    hit = t_64.reshape(-1) < 10.0
+    for key, a_k, a_p, a_64 in (("t", t_k, t_p, t_64), ("normal", n_k, n_p,
+                                                        n_64)):
+        width = a_64.reshape(hit.numel(), -1).shape[1]
+        gap_k, gap_p = (((a - a_64).abs().reshape(-1, width).amax(dim=1)
+                         * hit) for a in (a_k, a_p))
+        worst = int(gap_k.argmax())
+        out[f"kernels_worst_{key}_ray"] = {
+            "kernel_gap": gap_k[worst].item(),
+            "plain_gap": gap_p[worst].item(),
+            "hit_rays_where_plain_gap_exceeds_it": int(
+                (gap_p > gap_k[worst]).sum())}
+    return out
 
 
 MARCH_TOLS = {"max_abs_err_t_hit": 1e-2, "max_rel_err_t_all": 2e-3,
@@ -150,8 +250,18 @@ def phase_device(torch) -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    max_sm_mhz, sm_mhz = (float(x) for x in clocks.strip().split(","))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    CARD["sfu_per_s"] = SFU_LANES_PER_CLK_PER_SM * sms * max_sm_mhz * 1e6
     emit("device", name=name, count=torch.cuda.device_count(),
-         nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
+         nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
+         sms=sms, clocks_max_sm_mhz=max_sm_mhz, clocks_sm_mhz=sm_mhz,
+         sfu_ops_per_s=CARD["sfu_per_s"], hbm_bytes_per_s=HBM_BYTES_PER_S,
+         fp32_flop_per_s=FP32_FLOP_PER_S)
     return name
 
 
@@ -168,9 +278,9 @@ def phase_build() -> None:
             or "spill" in ln), flush=True)
 
 
-def main_path_inputs(torch, dev):
+def main_path_inputs(torch, dev, live: int = M_LIVE, slots: int = M_SLOTS):
     """16,384 rays drawn from the dango rig's 10 views at 256², and a
-    128-slot table with 100 live random primitives (seeded)."""
+    ``slots``-slot table with ``live`` random primitives (seeded)."""
     import numpy as np
 
     from burn_raymarching_tpu_torch.data.camera import create_camera_rays
@@ -192,16 +302,16 @@ def main_path_inputs(torch, dev):
                            device=dev)
     ro = torch.cat(ro_all)[pick].contiguous()
     rd = torch.cat(rd_all)[pick].contiguous()
-    params = init_scene_params(M_LIVE, device=dev)
+    params = init_scene_params(live, device=dev)
     with torch.no_grad():
         params.centers.copy_(torch.as_tensor(
-            rng.normal(0, 0.3, (M_LIVE, 3)), device=dev))
+            rng.normal(0, 0.3, (live, 3)), device=dev))
         params.radii.copy_(torch.as_tensor(
-            rng.normal(-2.0, 0.3, (M_LIVE, 1)), device=dev))
+            rng.normal(-2.0, 0.3, (live, 1)), device=dev))
         params.colors.copy_(torch.as_tensor(
-            rng.normal(0, 1.5, (M_LIVE, 3)), device=dev))
+            rng.normal(0, 1.5, (live, 3)), device=dev))
         params.light_dir.copy_(torch.tensor([0.3, 1.0, -0.4], device=dev))
-    padded, mask = pad_params(params, M_SLOTS)
+    padded, mask = pad_params(params, slots)
     cot = torch.as_tensor(rng.normal(0, 1, (N_RAYS, 3)), dtype=torch.float32,
                           device=dev)
     return ro, rd, padded, mask, activate, cot
@@ -217,27 +327,75 @@ def phase_kernels(torch, dev) -> dict:
     with torch.no_grad():
         c, col, r, ld, amb = activate(padded)
 
-    # K1 cold (40 steps) and warm (16 steps from 0.8 t_cold).
+    # K1 cold (40 steps) and warm (16 steps from 0.8 t_cold), with the
+    # kernel's and the plain version's gap to the same march in float64.
     failures = []
-    t_k, n_k = k1.march_shade(ro, rd, c, r, k, mask=mask)
-    t_p, n_p = k1.march_shade_plain(ro, rd, c, r, k, mask=mask)
-    cold = march_errors(torch, t_k, n_k, t_p, n_p)
-    t_init = (t_p * 0.8).contiguous()
-    tw_k, nw_k = k1.march_shade(ro, rd, c, r, k, mask=mask, num_steps=16,
-                                t_init=t_init)
-    tw_p, nw_p = k1.march_shade_plain(ro, rd, c, r, k, mask=mask,
-                                      num_steps=16, t_init=t_init)
-    warm = march_errors(torch, tw_k, nw_k, tw_p, nw_p)
-    for label, errs in (("cold", cold), ("warm16", warm)):
-        for key, tol in MARCH_TOLS.items():
-            check_close(failures, f"K1 {label} {key}", errs[key], tol)
-    ms = time_ms(torch, lambda: k1.march_shade(ro, rd, c, r, k, mask=mask))
-    plain_ms = time_ms(torch, lambda: k1.march_shade_plain(ro, rd, c, r, k,
-                                                           mask=mask))
-    emit("kernel", name="march_shade", cold=cold, warm16=warm, tol=MARCH_TOLS,
-         ms=ms, plain_ms=plain_ms)
-    results["march_shade"] = dict(max_abs_err=cold["max_abs_err_t_hit"],
-                                  ms=ms, plain_ms=plain_ms)
+
+    def k1_case(ro, rd, c, r, mask, label, main: bool):
+        """One table width → (errors, times and bound; the kernel's t and
+        normals). The main shape keeps the fixed MARCH_TOLS, cold and warm;
+        a narrow one is held cold to the larger of those and 5x the plain
+        version's own gap to float64 (other rays are ill-conditioned)."""
+        args = (ro, rd, c, r, k)
+        t_k, n_k = k1.march_shade(*args, mask=mask)
+        t_p, n_p = k1.march_shade_plain(*args, mask=mask)
+        t_64, n_64 = k1.march_shade_plain(ro.double(), rd.double(),
+                                          c.double(), r.double(), k,
+                                          mask=mask)
+        out = {"cold": march_errors(torch, t_k, n_k, t_p, n_p)}
+        out["cold"].update(float64_gaps(torch, t_k, n_k, t_p, n_p, t_64,
+                                        n_64))
+        tols = dict(MARCH_TOLS)
+        if main:
+            kw = dict(mask=mask, num_steps=16,
+                      t_init=(t_p * 0.8).contiguous())
+            out["warm16"] = march_errors(
+                torch, *k1.march_shade(*args, **kw),
+                *k1.march_shade_plain(*args, **kw))
+        else:
+            noise = march_noise_tols(torch, t_p, n_p, t_64, n_64)
+            tols = {key: max(tol, noise[key]) for key, tol in tols.items()}
+        for phase, errs in out.items():
+            for key, tol in tols.items():
+                check_close(failures, f"K1 {label} {phase} {key}", errs[key],
+                            tol)
+        out["ms"] = time_ms(torch, lambda: k1.march_shade(*args, mask=mask))
+        out["device_ms"] = graph_ms(
+            torch, lambda: k1.march_shade(*args, mask=mask))
+        out["plain_ms"] = time_ms(
+            torch, lambda: k1.march_shade_plain(*args, mask=mask), reps=10)
+        live = int(mask.sum())
+        out.update(march_bound(ro.shape[0] * live * 47.0, ro, rd, c, r,
+                               t_k, n_k))
+        emit("kernel", name="march_shade", slots=c.shape[0], live=live,
+             tol=tols, **out)
+        return out, (t_k, n_k)
+
+    for live, slots in K1_NARROW:
+        _, _, narrow, narrow_mask, _, _ = main_path_inputs(torch, dev, live,
+                                                           slots)
+        with torch.no_grad():
+            c_n, _, r_n, _, _ = activate(narrow)
+        k1_case(ro, rd, c_n, r_n, narrow_mask, f"M={slots}", main=False)
+    main, (t_k, n_k) = k1_case(ro, rd, c, r, mask, f"M={M_SLOTS}", main=True)
+    results["march_shade"] = dict(
+        max_abs_err=main["cold"]["max_abs_err_t_hit"], ms=main["ms"],
+        device_ms=main["device_ms"], plain_ms=main["plain_ms"],
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=None)
+
+    # The kernel that packs K1's table, bitwise against its plain version.
+    table_k = k1.pack_march_table(c, r, mask, k)
+    table_p = k1.march_table(c, r, mask, k)
+    err_pack = (table_k - table_p).abs().max().item()
+    check_close(failures, "K1 table pack", err_pack, 0.0)
+    results["march_pack"] = dict(
+        max_abs_err=err_pack,
+        ms=time_ms(torch, lambda: k1.pack_march_table(c, r, mask, k)),
+        plain_ms=time_ms(torch, lambda: k1.march_table(c, r, mask, k)),
+        **bound(tensor_bytes(c, r, mask, table_k), flops=6.0 * M_SLOTS),
+        library_ms=None)
+    emit("kernel", name="march_pack", tol=0.0, **results["march_pack"])
 
     # K2 forward.
     t_det, n_det = t_k, n_k
@@ -259,9 +417,18 @@ def phase_kernels(torch, dev) -> dict:
             ro, rd, t_det, n_det, c, r, col, ld, amb, k, mask=mask))
         plain_ms = time_ms(torch, lambda: k2.shade_plain(
             ro, rd, t_det, n_det, c, r, col, ld, amb, k, mask=mask))
+    # K2 per (ray, live primitive) pair: a sqrt and an exp for the soft-min
+    # at p0, a sqrt and two exps (softmax weight, soft-min) at p; the
+    # backward recomputes them. ~30 other FP32 operations forward, ~60
+    # backward.
+    pairs = float(N_RAYS * M_LIVE)
+    rays_in = (ro, rd, t_det, n_det, c, r, col)
+    fwd_bound = bound(tensor_bytes(*rays_in, out_k), sfu_ops=5.0 * pairs,
+                      flops=30.0 * pairs)
     emit("kernel", name="shade_fwd", max_abs_err=err_f, tol=1e-5, ms=ms,
-         plain_ms=plain_ms)
-    results["shade_fwd"] = dict(max_abs_err=err_f, ms=ms, plain_ms=plain_ms)
+         plain_ms=plain_ms, **fwd_bound)
+    results["shade_fwd"] = dict(max_abs_err=err_f, ms=ms, plain_ms=plain_ms,
+                                **fwd_bound, library_ms=None)
 
     # K2 gradients (all five parameter groups) against autograd of the plain
     # tail; tolerance relative to each group's largest gradient.
@@ -304,16 +471,22 @@ def phase_kernels(torch, dev) -> dict:
         out_plain, params_list, cot, retain_graph=True))
     red_ms = time_ms(torch, lambda: k2.launch_shade_reduce(partial))
     red_plain_ms = time_ms(torch, lambda: partial.sum(0))
+    bwd_bound = bound(tensor_bytes(*rays_in, cot, partial),
+                      sfu_ops=5.0 * pairs, flops=60.0 * pairs)
+    red_bound = bound(tensor_bytes(partial, red))
     emit("kernel", name="shade_bwd", max_abs_err_and_tol=err_g,
          padded_slots_zero=pad_zero, bitwise_repeatable=deterministic,
          ms=bwd_ms, plain_ms=bwd_plain_ms,
-         partial_rows=partial.shape[0])
+         partial_rows=partial.shape[0], **bwd_bound)
     emit("kernel", name="shade_reduce", max_abs_err=err_red, ms=red_ms,
-         plain_ms=red_plain_ms)
+         plain_ms=red_plain_ms, **red_bound)
     results["shade_bwd"] = dict(max_abs_err=max(e for e, _ in err_g.values()),
-                                ms=bwd_ms, plain_ms=bwd_plain_ms)
+                                ms=bwd_ms, plain_ms=bwd_plain_ms,
+                                **bwd_bound, library_ms=None)
+    # One PyTorch call computes the reduction: sum(0), the plain version.
     results["shade_reduce"] = dict(max_abs_err=err_red, ms=red_ms,
-                                   plain_ms=red_plain_ms)
+                                   plain_ms=red_plain_ms, **red_bound,
+                                   library_ms=red_plain_ms)
     if failures:
         raise AssertionError("; ".join(failures))
     return results
@@ -379,7 +552,22 @@ def c4_tiles(torch, dev, c, r, mask):
     rd3 = rd.reshape(-1, C4_TILE, 3)[pick].contiguous()
     counts = valid.sum(dim=1)
     return (ro3, rd3, cs, rs, qs), {"valid_per_tile_min": int(counts.min()),
-                                    "valid_per_tile_max": int(counts.max())}
+                                    "valid_per_tile_max": int(counts.max()),
+                                    "valid_slots": int(counts.sum())}
+
+
+def chunked_tiles(torch, dev, ro3, rd3):
+    """K3 inputs for its chunked path: the first CHUNKED_TILES ray tiles,
+    each against the same CHUNKED_K live primitives drawn evenly from the
+    51,200-sphere cloud (more columns than the resident table holds)."""
+    _, _, c, r = knot_cloud(torch, dev, LARGE_INIT_N)
+    pick = torch.arange(0, LARGE_INIT_N, LARGE_INIT_N // CHUNKED_K,
+                        device=dev)[:CHUNKED_K]
+    cs = c[pick][None].expand(CHUNKED_TILES, -1, -1).contiguous()
+    rs = r.reshape(-1)[pick][None].expand(CHUNKED_TILES, -1).contiguous()
+    return (ro3[:CHUNKED_TILES].contiguous(),
+            rd3[:CHUNKED_TILES].contiguous(), cs, rs,
+            torch.sum(cs * cs, dim=2))
 
 
 # K4 tolerances, relative to the plain value or the plain gradient's
@@ -469,6 +657,18 @@ def k4_case(torch, dev, n: int, far_field: str, failures: list) -> dict:
     part = first[2] if include_far else partial[:, None]
     out["reduce_ms"] = time_ms(torch, lambda: k4.launch_rep_reduce(part))
     out["reduce_plain_ms"] = time_ms(torch, lambda: part.sum(0))
+    # Per pair a sqrt and a reciprocal, forward and backward, among ~12
+    # (forward) and ~25 (backward) other FP32 operations.
+    c_dim, g_dim = planes[0].shape[1], planes[0].shape[2]
+    pairs = float(c_dim * g_dim * (planes[1].shape[2]
+                                   + (planes[2].shape[1] if include_far
+                                      else 0)))
+    out["pairs"] = pairs
+    out["fwd_bound"] = bound(tensor_bytes(*planes, partial),
+                             sfu_ops=2.0 * pairs, flops=12.0 * pairs)
+    out["bwd_bound"] = bound(tensor_bytes(*planes, *first),
+                             sfu_ops=2.0 * pairs, flops=25.0 * pairs)
+    out["reduce_bound"] = bound(tensor_bytes(part, part[0]))
     out["reduce_abs_err"] = (k4.launch_rep_reduce(part)
                              - part.sum(0)).abs().max().item()
     out["reduce_rel_err"] = (out["reduce_abs_err"]
@@ -497,10 +697,8 @@ def phase_kernels_c4(torch, dev) -> dict:
             *args64, C4_K, num_steps=steps,
             t_init=None if t_init is None else t_init.double())
         errs[label] = march_errors(torch, t_k, n_k, t_p, n_p)
-        for name, (t_x, n_x) in (("plain", (t_p, n_p)),
-                                 ("kernel", (t_k, n_k))):
-            errs[label][f"{name}_vs_float64"] = march_errors(
-                torch, t_x, n_x, t_64.float(), n_64.float())
+        errs[label].update(float64_gaps(torch, t_k, n_k, t_p, n_p, t_64,
+                                        n_64))
         tols[label] = march_noise_tols(torch, t_p, n_p, t_64, n_64)
         for key, tol in tols[label].items():
             check_close(failures, f"K3 {label} {key}", errs[label][key], tol)
@@ -515,12 +713,59 @@ def phase_kernels_c4(torch, dev) -> dict:
     cold_ms = time_ms(torch, lambda: k3.culled_march_normals(*args, C4_K))
     cold_plain_ms = time_ms(torch, lambda: culled_march_normals_xla(
         *args, C4_K), reps=5)
+    device_ms = graph_ms(torch, lambda: k3.culled_march_normals(
+        *args, C4_K, **warm_kw))
+    cold_device_ms = graph_ms(torch, lambda: k3.culled_march_normals(
+        *args, C4_K))
+    # The work this run's tables need: each ray against its tile's valid
+    # slots, 16 + 7 (warm) or 40 + 7 (cold) evaluations.
+    pairs = float(C4_TILE * table_stats["valid_slots"])
+    warm_bound = march_bound(23.0 * pairs, *args, t_init, t_k, n_k)
+    cold_bound = march_bound(47.0 * pairs, *args, t_k, n_k)
     emit("kernel", name="culled_march", tiles=C4_TILES, rays_per_tile=C4_TILE,
          table=C4_BUDGET, smooth_k=C4_K, **table_stats, cold=cold,
          warm16=warm, tol=tols, warm16_ms=ms, warm16_plain_ms=plain_ms,
-         cold_ms=cold_ms, cold_plain_ms=cold_plain_ms)
+         cold_ms=cold_ms, cold_plain_ms=cold_plain_ms,
+         warm16_device_ms=device_ms, cold_device_ms=cold_device_ms,
+         warm16_bound=warm_bound, cold_bound=cold_bound,
+         warm16_bound_if_all_slots_live=march_bound(
+             23.0 * C4_TILES * C4_TILE * C4_BUDGET, *args, t_init, t_k, n_k))
+    # ms, device_ms and bound_ms are the warm launch's (one per training
+    # step); most of a short run's launches are the prefill's cold ones, so
+    # those stand beside them.
     results = {"culled_march": dict(max_abs_err=warm["max_abs_err_t_hit"],
-                                    ms=ms, plain_ms=plain_ms)}
+                                    ms=ms, device_ms=device_ms,
+                                    plain_ms=plain_ms, **warm_bound,
+                                    library_ms=None, cold_ms=cold_ms,
+                                    cold_device_ms=cold_device_ms,
+                                    cold_plain_ms=cold_plain_ms,
+                                    cold_bound_ms=cold_bound["bound_ms"],
+                                    cold_max_abs_err=cold[
+                                        "max_abs_err_t_hit"])}
+
+    # The chunked path: more live columns than the resident table holds.
+    ch_args = chunked_tiles(torch, dev, args[0], args[1])
+    ch_kw = dict(num_steps=16)
+    t_k, n_k = k3.culled_march_normals(*ch_args, C4_K, **ch_kw)
+    t_p, n_p = culled_march_normals_xla(*ch_args, C4_K, **ch_kw)
+    t_64, n_64 = culled_march_normals_xla(*[a.double() for a in ch_args],
+                                          C4_K, **ch_kw)
+    ch_errs = march_errors(torch, t_k, n_k, t_p, n_p)
+    ch_errs.update(float64_gaps(torch, t_k, n_k, t_p, n_p, t_64, n_64))
+    ch_tols = march_noise_tols(torch, t_p, n_p, t_64, n_64)
+    for key, tol in ch_tols.items():
+        check_close(failures, f"K3 chunked {key}", ch_errs[key], tol)
+    emit("kernel", name="culled_march_chunked", tiles=CHUNKED_TILES,
+         rays_per_tile=C4_TILE, live_columns=CHUNKED_K, smooth_k=C4_K,
+         num_steps=16, errs=ch_errs, tol=ch_tols,
+         ms=time_ms(torch, lambda: k3.culled_march_normals(
+             *ch_args, C4_K, **ch_kw)),
+         device_ms=graph_ms(torch, lambda: k3.culled_march_normals(
+             *ch_args, C4_K, **ch_kw)),
+         plain_ms=time_ms(torch, lambda: culled_march_normals_xla(
+             *ch_args, C4_K, **ch_kw), reps=3),
+         **march_bound(23.0 * CHUNKED_TILES * C4_TILE * CHUNKED_K, *ch_args,
+                       t_k, n_k))
 
     cases = {}
     for n, far_field in ((C4_INIT_N, "member"), (C4_INIT_N, "monopole"),
@@ -536,15 +781,17 @@ def phase_kernels_c4(torch, dev) -> dict:
     results["repulsion_fwd"] = dict(
         max_abs_err=main["wrapper_value_abs_err"],
         max_rel_err=main["wrapper_value_rel_err"], ms=main["fwd_ms"],
-        plain_ms=main["fwd_plain_ms"])
+        plain_ms=main["fwd_plain_ms"], **main["fwd_bound"], library_ms=None)
     results["repulsion_bwd"] = dict(
         max_abs_err=main["wrapper_grad_max_abs_err"],
         max_rel_err=main["wrapper_grad_err_rel_to_max"], ms=main["bwd_ms"],
-        plain_ms=main["bwd_plain_ms"])
+        plain_ms=main["bwd_plain_ms"], **main["bwd_bound"], library_ms=None)
+    # One PyTorch call computes the reduction: sum(0), the plain version.
     results["repulsion_reduce"] = dict(
         max_abs_err=main["reduce_abs_err"],
         max_rel_err=main["reduce_rel_err"], ms=main["reduce_ms"],
-        plain_ms=main["reduce_plain_ms"])
+        plain_ms=main["reduce_plain_ms"], **main["reduce_bound"],
+        library_ms=main["reduce_plain_ms"])
     if failures:
         raise AssertionError("; ".join(failures))
     return results
@@ -601,13 +848,21 @@ def step_rate(torch, trainer, final, mask, steps: int = 30,
     return steps * trainer.cfg.batch_size / (time.perf_counter() - t0)
 
 
+# The __global__ functions under csrc/, as a trace names them.
+HAND_KERNELS = ("march_shade_kernel", "march_pack_kernel",
+                "culled_march_kernel", "shade_fwd_kernel",
+                "shade_bwd_kernel", "shade_reduce_kernel", "rep_fwd_kernel",
+                "rep_bwd_kernel", "rep_reduce_kernel")
+
+
 def device_profile(torch, trainer, final, mask, t_cache, steps: int = 10
                    ) -> dict:
     """torch.profiler over ``steps`` steady steps, read from its trace's
     device events (kernels, copies, memsets; not the annotation spans that
     the trace also places on the device) → busy device time per step (the
-    union of their intervals), events per step and the five kernel names
-    with the most device time."""
+    union of their intervals), events per step, the five kernel names
+    with the most device time, and the device time of each hand-written
+    kernel (HAND_KERNELS) that ran."""
     from torch.profiler import ProfilerActivity, profile
 
     one = step_runner(torch, trainer, final, mask, t_cache)
@@ -635,10 +890,14 @@ def device_profile(torch, trainer, final, mask, t_cache, steps: int = 10
         end = max(end, stop)
         by_name[name] = by_name.get(name, 0.0) + (stop - start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    hand = {k: sum(d for name, d in by_name.items() if k in name)
+            for k in HAND_KERNELS}
     return {"device_busy_ms_per_step": busy_us / 1000.0 / steps,
             "device_events_per_step": len(spans) / steps,
             "top_kernels_ms_per_step": [[k[:60], d / 1000.0 / steps]
-                                        for k, d in top]}
+                                        for k, d in top],
+            "hand_kernels_ms_per_step": {k: d / 1000.0 / steps
+                                         for k, d in hand.items() if d > 0}}
 
 
 def phase_generate_and_train(torch) -> dict:
@@ -655,6 +914,7 @@ def phase_generate_and_train(torch) -> dict:
     from burn_raymarching_tpu_torch.train.loop import Trainer
 
     counters = {"march_shade": k1.march_shade,
+                "march_pack": k1.pack_march_table,
                 "shade_fwd": k2.launch_shade_fwd,
                 "shade_bwd": k2.launch_shade_bwd,
                 "shade_reduce": k2.launch_shade_reduce}
@@ -696,6 +956,8 @@ def phase_generate_and_train(torch) -> dict:
                             cfg.height, smooth_k=cfg.max_smooth_k, mask=mask,
                             march_normal_fn=trainer.march_normal_fn)
         rate_kernels = step_rate(torch, trainer, padded, mask)
+        wall_ms = cfg.batch_size / rate_kernels * 1000.0
+        prof = device_profile(torch, trainer, padded, mask, None, steps=20)
         plain_trainer = Trainer(dataclasses.replace(cfg, use_pallas=False),
                                 trainer.dataset, log=lambda s: None)
         rate_plain = step_rate(torch, plain_trainer, padded, mask)
@@ -705,7 +967,9 @@ def phase_generate_and_train(torch) -> dict:
              psnr_mean=ev["mean"], psnr_min=ev["min"],
              loss_history=trainer.loss_history,
              rays_per_s_kernels=rate_kernels,
-             rays_per_s_plain=rate_plain, launches=launches,
+             rays_per_s_plain=rate_plain, wall_ms_per_step=wall_ms,
+             device_busy_share=prof["device_busy_ms_per_step"] / wall_ms,
+             **prof, launches=launches,
              all_finite=bool(np.isfinite(
                  np.asarray(scene["centers"] + scene["radii"])).all()))
         if not (math.isfinite(final_loss) and ev["mean"] > MIN_PSNR_DB):
@@ -786,6 +1050,9 @@ _CSRC = "burn_raymarching_tpu_torch/csrc/"
 SOURCES = {
     "march_shade": (_CSRC + "march_shade.cu",
                     _PALLAS + "march_shade_kernel.py:192"),
+    # The table build of the TPU kernel's wrapper (no kernel of its own).
+    "march_pack": (_CSRC + "march_shade.cu",
+                   _PALLAS + "march_shade_kernel.py:237"),
     "shade_fwd": (_CSRC + "shade.cu", _PALLAS + "shade_kernel.py:265"),
     "shade_bwd": (_CSRC + "shade.cu", _PALLAS + "shade_kernel.py:283"),
     "shade_reduce": (_CSRC + "shade.cu", _PALLAS + "shade_kernel.py:283"),

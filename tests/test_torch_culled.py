@@ -26,7 +26,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import cuda_device, nn, tt  # noqa: F401
+from torch_parity import (  # noqa: F401  (cuda_device is a fixture)
+    cuda_device,
+    expanded_q,
+    nn,
+    soft_min_online,
+    staged_q,
+    tt,
+)
 
 from burn_raymarching_tpu.data.camera import create_camera_rays as j_rays
 from burn_raymarching_tpu.ops import culling as jc
@@ -41,6 +48,7 @@ from burn_raymarching_tpu.utils.morton import morton_permutation
 from burn_raymarching_tpu_torch.models.scene import SceneParams
 from burn_raymarching_tpu_torch.ops import culling as tc
 from burn_raymarching_tpu_torch.ops.cuda import culled_march_kernel as k3
+from burn_raymarching_tpu_torch.ops.sdf import soft_min
 from burn_raymarching_tpu_torch.render import culled as tr
 from burn_raymarching_tpu_torch.render.preview import CullRender, render_tiled
 
@@ -113,6 +121,65 @@ def test_warm_march_matches_jax_kernel(scene):
     got = k3.culled_march_normals(tt(ro3), tt(rd3), tt(cs), tt(rs), tt(qs),
                                   SMOOTH_K, num_steps=16, t_init=tt(t0))
     _check(got, want)
+
+
+def test_culled_table_unpacks(scene):
+    """[B, K, 5] rows (cx, cy, cz, |c|^2, r): unpacking gives back the
+    gathered tables, and invalid slots carry 1e30."""
+    _, _, cs, rs, qs = _tables(scene)
+    qs = qs.copy()
+    qs[:, -2:] = 1e30           # the selection filled every slot: drop two
+    table = k3.culled_table(tt(cs), tt(rs), tt(qs))
+    assert table.shape == cs.shape[:2] + (5,) and table.is_contiguous()
+    np.testing.assert_array_equal(nn(table[..., :3]), cs)
+    np.testing.assert_array_equal(nn(table[..., 3]), qs)
+    np.testing.assert_array_equal(nn(table[..., 4]), rs)
+    invalid = qs > 1e29
+    assert invalid.any() and not invalid.all()
+    np.testing.assert_array_equal(qs[invalid], np.float32(1e30))
+    valid_sq = np.sum(cs * cs, axis=2)[~invalid]
+    np.testing.assert_allclose(nn(table[..., 3])[~invalid], valid_sq,
+                               rtol=1e-6)
+
+
+def test_staged_q_bitwise_equals_expanded(scene):
+    """Per tile, the staged form (center scaled by -2) gives bitwise the
+    expanded form's q in float32, invalid slots included."""
+    ro3, rd3, cs, rs, qs = _tables(scene)
+    table = k3.culled_table(tt(cs), tt(rs), tt(qs))
+    rng = np.random.default_rng(3)
+    t = tt(rng.uniform(0.0, 4.0, ro3.shape[:2] + (1,)).astype(np.float32))
+    p = tt(ro3) + tt(rd3) * t
+    got, want = staged_q(p, table), expanded_q(p, table)
+    assert got.shape == ro3.shape[:2] + (BUDGET,)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("lanes", [1, 32])
+def test_online_soft_min_matches_two_pass(scene, lanes):
+    """The kernel's one-pass soft-min in K3's op order (distance, then
+    *(-k)) against ops/sdf.soft_min on the same distances at k = 128, 1e-6
+    relative, on points along the rays and one at distance ~50 (dropping
+    the max would underflow it); and both against
+    render/culled._tile_soft_min, whose bmm rounds the distances
+    differently (a few ulp of |p|^2: atol 1e-6)."""
+    ro3, rd3, cs, rs, qs = (tt(x) for x in _tables(scene))
+    rng = np.random.default_rng(4)
+    t = tt(rng.uniform(0.0, 4.0, tuple(ro3.shape[:2]) + (1,))
+           .astype(np.float32))
+    p = ro3 + rd3 * t
+    p[0, 0] = torch.tensor([50.0, 0.0, 0.0])
+    want = tr._tile_soft_min(p, cs, rs, qs, 128.0)
+    table = k3.culled_table(cs, rs, qs)
+    for b in range(p.shape[0]):
+        dists = torch.sqrt(torch.clamp(staged_q(p[b], table[b]), min=1e-6)) \
+            - table[b, :, 4]
+        got = soft_min_online(dists, 128.0, lanes=lanes)
+        np.testing.assert_allclose(nn(got), nn(soft_min(dists, 128.0)),
+                                   rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(nn(got), nn(want[b]), rtol=1e-6,
+                                   atol=1e-6)
+    assert 48.0 < want[0, 0].item() < 50.0
 
 
 def _render_args(s, lib):
@@ -239,7 +306,9 @@ def _cuda_case(dev, b, t_dim, k_dim, seed):
     rd = tt(np.asarray(rd)[perm]).reshape(b, t_dim, 3).to(dev)
     cs = torch.as_tensor(rng.normal(0, 0.3, (b, k_dim, 3)),
                          dtype=torch.float32, device=dev)
-    rs = torch.as_tensor(0.02 + 0.05 * rng.random((b, k_dim)),
+    # A handful of spheres must still be hit: make them larger.
+    scale = 5.0 if k_dim < 50 else 1.0
+    rs = torch.as_tensor(scale * (0.02 + 0.05 * rng.random((b, k_dim))),
                          dtype=torch.float32, device=dev)
     valid = torch.as_tensor(rng.random((b, k_dim)) > 0.1, device=dev)
     qs = torch.where(valid, torch.sum(cs * cs, dim=2),
@@ -256,14 +325,16 @@ def _march_gaps(t_a, n_a, t_b, n_b, hit):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k_dim", [300, 5000])
+@pytest.mark.parametrize("k_dim", [5, 300, 2048, 5000, 8192])
 def test_cuda_kernel_matches_plain(cuda_device, k_dim):
-    """K = 300 keeps the table resident; K = 5000 > 4096 stages it chunk by
-    chunk (and opts in to > 48 KB of shared memory). At k = 128 around
+    """K <= 4096 keeps the table resident (K = 2,048 is config 4's budget);
+    K = 5000 and 8,192 stage it chunk by chunk (and opt in to > 48 KB of
+    shared memory). 250 rays per tile leave the last block of a tile
+    ragged (a block marches 16 rays). At k = 128 around
     spheres of radius 0.02-0.07 the march's float32 noise reaches ~1e-2 in
     the normals, so each gap to the plain version is held to 5x the plain
     version's own gap to the same march in float64, plus 1e-5."""
-    args = _cuda_case(cuda_device, 4, 256, k_dim, k_dim)
+    args = _cuda_case(cuda_device, 4, 250, k_dim, k_dim)
     args64 = [a.double() for a in args]
     t_init = None
     for steps in (40, 16):

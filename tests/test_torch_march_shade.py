@@ -7,7 +7,9 @@ that hit (t < 10); the JAX kernel folds k*r into the soft-min, so the two
 agree within a tolerance.
 Missed rays' normals are finite differences of ~0 and carry no meaning.
 The CUDA kernel itself is held against the plain version by the
-cuda-marked test (run on a GPU: ``pytest -m cuda tests/``).
+cuda-marked tests (run on a GPU: ``pytest -m cuda tests/``). The CPU tests
+of the packed table and of the one-pass soft-min hold the arithmetic the
+kernel shares with K3 (csrc/common.cuh) in plain PyTorch.
 """
 
 import jax.numpy as jnp
@@ -18,7 +20,10 @@ from torch_parity import (  # noqa: F401  (cuda_device is a fixture)
     DANGO_CENTERS,
     DANGO_RADII,
     cuda_device,
+    expanded_q,
     nn,
+    soft_min_online,
+    staged_q,
     tt,
 )
 
@@ -27,6 +32,7 @@ from burn_raymarching_tpu.ops.pallas.march_shade_kernel import (
     march_shade_pallas,
 )
 from burn_raymarching_tpu_torch.ops.cuda import march_shade_kernel as k1
+from burn_raymarching_tpu_torch.ops.sdf import soft_min
 
 
 @pytest.fixture(scope="module")
@@ -94,12 +100,73 @@ def test_march_table_layout():
     c = tt(DANGO_CENTERS)
     r = tt(DANGO_RADII)
     mask = torch.tensor([True, False, True])
-    table = k1.march_table(c, r, mask)
-    assert table.shape == (5, 3) and table.is_contiguous()
-    np.testing.assert_array_equal(nn(table[:3]), DANGO_CENTERS.T)
-    np.testing.assert_array_equal(nn(table[3]), DANGO_RADII[:, 0])
-    assert table[4, 1].item() == pytest.approx(1e30)
-    assert table[4, 0].item() == pytest.approx(0.09)
+    table = k1.march_table(c, r, mask, 18.5)
+    assert table.shape == (3, 5) and table.is_contiguous()
+    np.testing.assert_array_equal(nn(table[:, :3]), DANGO_CENTERS)
+    np.testing.assert_array_equal(nn(table[:, 4]),
+                                  DANGO_RADII[:, 0] * np.float32(18.5))
+    assert table[1, 3].item() == pytest.approx(1e30)
+    assert table[0, 3].item() == pytest.approx(0.09)
+    # On the CPU the wrapper of the pack kernel is the plain version.
+    assert torch.equal(k1.pack_march_table(c, r, mask, 18.5), table)
+
+
+def _random_table(seed, m, live, k=18.5):
+    rng = np.random.default_rng(seed)
+    c = rng.normal(0, 0.4, (m, 3)).astype(np.float32)
+    r = rng.uniform(0.02, 0.3, (m, 1)).astype(np.float32)
+    mask = np.arange(m) < live
+    return c, r, mask, k1.march_table(tt(c), tt(r), tt(mask), k)
+
+
+@pytest.mark.parametrize("m,live", [(1, 1), (8, 7), (33, 20), (128, 100)])
+def test_march_table_unpacks(m, live):
+    """Unpacking gives back the centers, r*k and |c|^2; masked slots carry
+    1e30 and nothing else of the slot changes."""
+    c, r, mask, table = _random_table(3, m, live, k=32.0)
+    np.testing.assert_array_equal(nn(table[:, :3]), c)
+    np.testing.assert_array_equal(nn(table[:, 4]), r[:, 0] * np.float32(32.0))
+    c_sq = (c[:, 0] * c[:, 0] + c[:, 1] * c[:, 1]) + c[:, 2] * c[:, 2]
+    np.testing.assert_array_equal(nn(table[:live, 3]), c_sq[:live])
+    np.testing.assert_array_equal(nn(table[live:, 3]),
+                                  np.full(m - live, 1e30, np.float32))
+    no_mask = k1.march_table(tt(c), tt(r), None, 32.0)
+    np.testing.assert_array_equal(nn(no_mask[:, 3]), c_sq)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_staged_q_bitwise_equals_expanded(seed):
+    """Folding the -2 into the staged centers is exact: q is bitwise the
+    expanded form's, masked slots included."""
+    _, _, _, table = _random_table(seed, 64, 50)
+    rng = np.random.default_rng(100 + seed)
+    p = tt(rng.normal(0, 1.5, (4096, 3)).astype(np.float32))
+    got, want = staged_q(p, table), expanded_q(p, table)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, want)
+    assert bool((got[:, 50:] > 1e29).all())
+
+
+@pytest.mark.parametrize("k,lanes", [(5.0, 1), (18.5, 4), (32.0, 8),
+                                     (128.0, 32)])
+def test_online_soft_min_matches_two_pass(k, lanes):
+    """The kernels' one-pass soft-min against ops/sdf.soft_min, 1e-6
+    relative (plus 1e-7 for distances near 0), with masked slots and with a
+    far point at distance ~50, where dropping the max would underflow every
+    term at k = 128 and return the 1e-8 clamp instead of the distance."""
+    rng = np.random.default_rng(int(k))
+    c, r, mask, table = _random_table(11, 40, 33, k=k)
+    p = rng.normal(0, 0.6, (257, 3)).astype(np.float32)
+    p[0] = [50.0, 0.0, 0.0]
+    dists = torch.sqrt(torch.clamp(staged_q(tt(p), table), min=1e-6)) \
+        - tt(r)[:, 0]
+    want = soft_min(dists, k, mask=tt(mask))
+    got = soft_min_online(dists, k, lanes=lanes)
+    np.testing.assert_allclose(nn(got), nn(want), rtol=1e-6, atol=1e-7)
+    assert 48.0 < got[0].item() < 50.0
+    # Skipping the exp of far columns would change no bit of the sum.
+    assert torch.equal(got, soft_min_online(dists, k, lanes=lanes,
+                                            skip_below=40.0))
 
 
 @pytest.mark.cuda
@@ -123,6 +190,50 @@ def test_cuda_kernel_matches_plain(rays, cuda_device, warm):
     np.testing.assert_allclose(nn(t_k), nn(t_p), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(nn(n_k)[nn(hit)], nn(n_p)[nn(hit)],
                                atol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,live,side", [
+    (1, 1, 64), (7, 7, 32), (8, 7, 128), (16, 12, 32), (32, 25, 256),
+    (33, 20, 32), (128, 100, 128), (1500, 1200, 32)])
+def test_cuda_kernel_table_widths(cuda_device, m, live, side):
+    """Table widths from 1 to 1,500 slots at side x side rays, which take
+    every lanes-per-ray instantiation (1, 8, 4, 16, 2, 32, 8, 32 lanes) and,
+    at M = 1,500, the chunked path; cold, against the plain version; the
+    pack kernel's table bitwise against the plain table. Each gap is held
+    to chip_smoke.py's K1 tolerance or, where the march itself is noisier
+    (among 16,384+ rays some graze a sphere), to 5x the plain version's
+    own gap to the same march in float64, plus 1e-5."""
+    dev = cuda_device
+    c, r, mask, table = _random_table(5, m, live)
+    c[:live] *= 0.6
+    if m > 8:
+        r = r * 0.3             # many spheres: small ones
+    c, r, mask = tt(c).to(dev), tt(r).to(dev), tt(mask).to(dev)
+    before = k1.pack_march_table.launches
+    packed = k1.pack_march_table(c, r, mask, 18.5)
+    assert k1.pack_march_table.launches == before + 1
+    assert torch.equal(packed, k1.march_table(c, r, mask, 18.5))
+    ro, rd = (tt(x).to(dev) for x in
+              j_rays(side, side, [0.0, 0.3, -1.6], [0.0, 0.0, 0.0], 50.0))
+    t_k, n_k = k1.march_shade(ro, rd, c, r, 18.5, mask=mask)
+    t_p, n_p = k1.march_shade_plain(ro, rd, c, r, 18.5, mask=mask)
+    t_64, n_64 = k1.march_shade_plain(ro.double(), rd.double(), c.double(),
+                                      r.double(), 18.5, mask=mask)
+    torch.cuda.synchronize()
+    hit = t_64[:, 0] < 10.0
+    assert int(hit.sum()) > 20
+
+    def gaps(t_a, n_a, t_b, n_b):
+        dt = (t_a.double() - t_b.double()).abs()[:, 0]
+        return (dt[hit].max().item(),
+                (dt / (1.0 + t_b.double()[:, 0].abs())).max().item(),
+                (n_a.double() - n_b.double())[hit].abs().max().item())
+
+    noise = gaps(t_p, n_p, t_64, n_64)
+    for gap, fixed, own in zip(gaps(t_k, n_k, t_p, n_p), (1e-2, 2e-3, 5e-3),
+                               noise):
+        assert gap <= max(fixed, 5.0 * own + 1e-5), (gap, noise)
 
 
 @pytest.mark.cuda
@@ -152,10 +263,11 @@ def test_cuda_kernel_chunked_table(cuda_device):
     assert dt.max() <= 2e-3
     np.testing.assert_allclose(nn(n_k)[hit], nn(n_p)[hit], atol=1e-2)
 
-    # The chunk machinery itself, bitwise: a 2,048-slot table whose second
-    # chunk is all masked must give exactly the resident 1,000-slot result
-    # (masked slots add exp(-1e16) = 0 and never win the max). A chunk
-    # staged from the wrong columns would bring live spheres back.
+    # Trailing masked slots, bitwise: a 2,048-slot table whose last 1,048
+    # slots are masked must give exactly the 1,000-slot result (the kernel
+    # visits only the columns up to the last live one; masked slots would
+    # add exp(-1e16) = 0 and never win the max). Junk staged from the
+    # masked columns would bring live spheres back.
     junk = torch.full((2048 - 1000, 3), 0.05, device=dev)
     c2 = torch.cat([c[:1000], junk])
     r2 = torch.cat([r[:1000], torch.full((2048 - 1000, 1), 0.3, device=dev)])

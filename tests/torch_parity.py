@@ -62,6 +62,52 @@ def pad_raw(d: dict, pad: int) -> dict:
     return out
 
 
+def staged_q(p: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Squared distances [..., N, M] as the march kernels form them from a
+    staged table ([M, 5], or [B, M, 5] with p [B, N, 3]; rows cx, cy, cz,
+    |c|², r): the center scaled by −2, then
+    (|p|² + |c|²) + (px·cx' + (py·cy' + pz·cz'))."""
+    px, py, pz = (p[..., i, None] for i in range(3))
+    cx, cy, cz = (-2.0 * table[..., None, :, i] for i in range(3))
+    p_sq = (px * px + py * py) + pz * pz
+    return (p_sq + table[..., None, :, 3]) + (px * cx + (py * cy + pz * cz))
+
+
+def expanded_q(p: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """The same distances in the expanded form the kernels used before the
+    −2 was folded into the table: (|p|² + |c|²) − 2 (px·cx + (py·cy +
+    pz·cz))."""
+    px, py, pz = (p[..., i, None] for i in range(3))
+    cx, cy, cz = (table[..., None, :, i] for i in range(3))
+    p_sq = (px * px + py * py) + pz * pz
+    return (p_sq + table[..., None, :, 3]) - 2.0 * (px * cx
+                                                    + (py * cy + pz * cz))
+
+
+def soft_min_online(dists: torch.Tensor, k: float, lanes: int = 4,
+                    skip_below: float = float("inf")) -> torch.Tensor:
+    """The march kernels' one-pass soft-min of ``dists`` [N, M] → [N, 1], in
+    plain PyTorch: ``lanes`` lanes stride over the columns, each keeping a
+    running max m and a sum s relative to it (a column with d = v − m adds
+    e = exp(−|d|) as s + e, or as s·e + 1 when it raises the max), then the
+    lanes merge by the overall max. ``skip_below`` sets e = 0 where
+    |d| >= it, which the kernels do not do: at 40 it must change no bit."""
+    val = dists * (-k)
+    n, m_cols = val.shape
+    m = torch.full((n, lanes), -torch.inf, dtype=val.dtype)
+    s = torch.zeros((n, lanes), dtype=val.dtype)
+    for j in range(m_cols):
+        lane, v = j % lanes, val[:, j]
+        d = v - m[:, lane]
+        e = torch.where(d.abs() < skip_below, torch.exp(-d.abs()),
+                        torch.zeros_like(d))
+        s[:, lane] = torch.where(d > 0, s[:, lane] * e + 1.0, s[:, lane] + e)
+        m[:, lane] = torch.maximum(m[:, lane], v)
+    mx = m.amax(dim=1, keepdim=True)
+    total = torch.sum(s * torch.exp(m - mx), dim=1, keepdim=True)
+    return (torch.log(torch.clamp(total, min=1e-8)) + mx) / (-k)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
