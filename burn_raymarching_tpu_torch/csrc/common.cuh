@@ -85,6 +85,13 @@ __device__ __forceinline__ float pair_exp(float x) {
   return r;
 }
 
+// 1 / x for x > 0 on the SFU.
+__device__ __forceinline__ float pair_rcp(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
 // xor butterflies over the L lanes of a group (L a power of two <= 32, the
 // groups aligned in the warp): every lane of the group ends with the same
 // value, bitwise, in a fixed order.
@@ -101,6 +108,95 @@ __device__ __forceinline__ float group_sum(float v) {
 #pragma unroll
   for (int o = L / 2; o > 0; o >>= 1) v += __shfl_xor_sync(FULL_MASK, v, o);
   return v;
+}
+
+template <int L>
+__device__ __forceinline__ float group_min(float v) {
+#pragma unroll
+  for (int o = L / 2; o > 0; o >>= 1)
+    v = fminf(v, __shfl_xor_sync(FULL_MASK, v, o));
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// Sums over blocks inside one launch (K2 and K4 backward, K4 forward).
+//
+// Blocks run in any order, so a sum over blocks is taken by whichever block
+// finishes last, in an order that does not depend on which one that is:
+// every block writes its part to global memory and takes an integer ticket;
+// the block that draws the last ticket reads all parts back and adds them
+// in index order. No float atomics, so the result is bitwise repeatable.
+
+// Takes a ticket for the calling block after its global writes; true for
+// the block that draws the last of ``count``. The counter is left at 0 for
+// the next launch. Every thread of the block must call it; ``flag`` is one
+// shared int.
+__device__ __forceinline__ bool last_ticket(int* counter, int count,
+                                            int* flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int last = atomicAdd(counter, 1) == count - 1;
+    if (last) *counter = 0;
+    *flag = last;
+  }
+  __syncthreads();
+  const bool last = *flag != 0;
+  if (last) __threadfence();
+  return last;
+}
+
+// Rows added per node of sum_tree. 16 loads of 16 bytes are in flight per
+// thread and level.
+#define SUM_TREE_FAN 16
+
+// dst[0, pitch) = the sum of ``cnt`` <= SUM_TREE_FAN rows of ``pitch``
+// floats at src, in row order, by the calling block. A thread starts all
+// its loads before its first addition.
+__device__ __forceinline__ void sum_rows(const float* src, int cnt, int pitch,
+                                         float* dst) {
+  for (int c = threadIdx.x; c < pitch / 4; c += blockDim.x) {
+    float4 v[SUM_TREE_FAN];
+#pragma unroll
+    for (int r = 0; r < SUM_TREE_FAN; ++r)
+      if (r < cnt)
+        v[r] = __ldcg(reinterpret_cast<const float4*>(src + (size_t)r * pitch) +
+                      c);
+    float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int r = 0; r < SUM_TREE_FAN; ++r)
+      if (r < cnt) s.x += v[r].x, s.y += v[r].y, s.z += v[r].z, s.w += v[r].w;
+    reinterpret_cast<float4*>(dst)[c] = s;
+  }
+}
+
+// The sum of ``rows`` rows of ``pitch`` floats (a multiple of 4, the rows 16
+// bytes aligned) that ``rows`` blocks wrote, one each, into ``part``, as a
+// fixed tree with SUM_TREE_FAN rows per node: the block that draws the last
+// ticket of a node adds the node's rows in row order into a row of the next
+// level (in ``scratch``, which holds one row per node of every level), and
+// goes on to that level; the root's sum goes to out [pitch]. ``row`` is the
+// calling block's row. tickets: one int per node, 0 on entry and exit. Every
+// thread of the block must call it; true for the one block that wrote
+// ``out``.
+__device__ __forceinline__ bool sum_tree(const float* part, int rows, int row,
+                                         int pitch, float* scratch,
+                                         int* tickets, float* out, int* flag) {
+  const float* src = part;
+  do {
+    const int node = row / SUM_TREE_FAN, first = node * SUM_TREE_FAN;
+    const int cnt = min(SUM_TREE_FAN, rows - first);
+    const int nodes = (rows + SUM_TREE_FAN - 1) / SUM_TREE_FAN;
+    if (!last_ticket(tickets + node, cnt, flag)) return false;
+    sum_rows(src + (size_t)first * pitch, cnt, pitch,
+             nodes == 1 ? out : scratch + (size_t)node * pitch);
+    src = scratch;
+    scratch += (size_t)nodes * pitch;
+    tickets += nodes;
+    row = node;
+    rows = nodes;
+  } while (rows > 1);
+  return true;
 }
 
 // One block's primitive table. ``g`` is the global [m, 5] array with rows

@@ -91,6 +91,38 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+# Rows per node of the kernels' fixed-order sum over blocks (SUM_TREE_FAN in
+# csrc/common.cuh).
+SUM_TREE_FAN = 16
+
+
+def tree_nodes(rows: int) -> int:
+    """Nodes of the sum tree over ``rows`` rows, all levels: the scratch
+    rows and tickets that ``sum_tree`` (csrc/common.cuh) needs."""
+    total = 0
+    while True:
+        rows = -(-rows // SUM_TREE_FAN)
+        total += rows
+        if rows == 1:
+            return total
+
+
+_TICKETS: dict = {}
+
+
+def tickets(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zero int32 tickets for a kernel that sums over its
+    blocks inside the launch: one buffer per device and stream, since
+    launches on one stream run in order and each kernel hands its tickets
+    back as zero as it found them."""
+    key = (device, stream_ptr(device))
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros((max(n, 4096),), dtype=torch.int32, device=device)
+        _TICKETS[key] = buf
+    return buf
+
+
 def ptr(x) -> int | None:
     return None if x is None else x.data_ptr()
 
@@ -107,3 +139,9 @@ def check_cuda_f32(name: str, x: torch.Tensor, shape: tuple,
                          f"{tuple(shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def launch_noop(device: torch.device) -> None:
+    """Launch the empty kernel of csrc/noop.cu (the launch-time floor)."""
+    fn = bind(load_library("noop"), "noop_launch", [ctypes.c_void_p])
+    check(fn(stream_ptr(device)), "empty kernel launch")

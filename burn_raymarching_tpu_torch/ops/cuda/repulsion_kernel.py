@@ -5,12 +5,13 @@ burn_raymarching_tpu/ops/pallas/repulsion_kernel.py::cluster_repulsion_fused).
 centroid means, neighbor top-k or the frozen static tables, far weights) in
 torch autograd, exactly as the JAX package keeps it outside its custom VJP,
 and hands the coordinate planes to ``repulsion_sum``. For CUDA tensors that
-is ``RepulsionSum`` (csrc/repulsion.cu: a forward kernel writing one partial
-per cluster, a backward kernel writing d_members, d_neighbor_members and a
-d_centroids partial per cluster, and a fixed-order reduction of the
-partials); for CPU tensors it is ``repulsion_sum_plain`` under autograd.
-Shapes are exact: the TPU kernel's 128-lane padding is not carried over.
-Under ``far_field="monopole"`` the [C, C] centroid term stays plain torch.
+is ``RepulsionSum`` (csrc/repulsion.cu): one forward launch that returns the
+scalar and one backward launch that returns d_members, d_neighbor_members
+and d_centroids complete; the sums over blocks are taken inside the
+launches in a fixed order. For CPU tensors it is ``repulsion_sum_plain``
+under autograd. Shapes are exact: the TPU kernel's 128-lane padding is not
+carried over. Under ``far_field="monopole"`` the [C, C] centroid term stays
+plain torch.
 """
 
 from __future__ import annotations
@@ -39,10 +40,10 @@ def _lib():
     lib = build.load_library("repulsion")
     return {
         "fwd": build.bind(lib, "rep_fwd_launch",
-                          [_P] * 8 + [_I] * 5 + [_P, _P]),
+                          [_P] * 8 + [_I] * 7 + [_P] * 4),
         "bwd": build.bind(lib, "rep_bwd_launch",
-                          [_P] * 9 + [_I] * 5 + [_P, _P, _P, _P]),
-        "reduce": build.bind(lib, "rep_reduce_launch", [_P, _I, _I, _P, _P]),
+                          [_P] * 9 + [_I] * 7 + [_P] * 8),
+        "slices": build.bind(lib, "rep_slices", [_I] * 6),
     }
 
 
@@ -68,62 +69,83 @@ def repulsion_sum_plain(cs, nb_cs, cents, w, nb_w, mi, nbm, far_w,
     return s
 
 
+def _slices(c, g, wg, ca, include_far: bool, slices: int) -> int:
+    n = _lib()["slices"](c, g, wg, ca, int(include_far), slices)
+    if n < 1:
+        raise ValueError(f"repulsion kernel: no launch plan for C = {c}, "
+                         f"G = {g}, W·G = {wg}, C_all = {ca}, "
+                         f"slices = {slices}")
+    return n
+
+
 def launch_rep_fwd(cs, nb_cs, cents, w, nb_w, mi, nbm, far_w,
-                   include_far: bool) -> torch.Tensor:
-    """→ per-cluster partial sums [C]."""
-    c, g = w.shape
-    partial = torch.empty((c,), dtype=torch.float32, device=cs.device)
-    err = _lib()["fwd"](*(build.ptr(x) for x in (cs, nb_cs, cents, w, nb_w,
-                                                 mi, nbm, far_w)),
-                        c, g, nb_w.shape[1], cents.shape[1], int(include_far),
-                        build.ptr(partial), build.stream_ptr(cs.device))
-    build.check(err, "repulsion forward kernel launch")
-    launch_rep_fwd.launches += 1
-    return partial
-
-
-def launch_rep_bwd(cs, nb_cs, cents, w, nb_w, mi, nbm, far_w, g_out,
-                   include_far: bool):
-    """→ (d_cs [3,C,G], d_nb_cs [3,C,W·G], d_centroid partials [C,3,C_all]
-    or None without the far field)."""
+                   include_far: bool, slices: int = 0, reduce: bool = True):
+    """One forward launch → (sum, 0-dim; per-block partial sums [C·S]).
+    ``slices`` S per cluster, 0 for the kernel's rule. The launch itself
+    adds the partials in index order; without ``reduce`` it stops after
+    writing them and the sum is not set."""
     c, g = w.shape
     wg, ca = nb_w.shape[1], cents.shape[1]
     dev = cs.device
+    n_slices = _slices(c, g, wg, ca, include_far, slices)
+    out = torch.empty((1 + c * n_slices,), dtype=torch.float32, device=dev)
+    total, partial = out[0], out[1:]
+    err = _lib()["fwd"](*(build.ptr(x) for x in (cs, nb_cs, cents, w, nb_w,
+                                                 mi, nbm, far_w)),
+                        c, g, wg, ca, int(include_far), slices, int(reduce),
+                        build.ptr(partial), build.ptr(build.tickets(dev, 1)),
+                        build.ptr(total), build.stream_ptr(dev))
+    build.check(err, "repulsion forward kernel launch")
+    launch_rep_fwd.launches += 1
+    return total, partial
+
+
+def launch_rep_bwd(cs, nb_cs, cents, w, nb_w, mi, nbm, far_w, g_out,
+                   include_far: bool, slices: int = 0, reduce: bool = True):
+    """One backward launch → (d_cs [3,C,G], d_nb_cs [3,C,W·G], d_cents
+    [3,C_all], per-cluster d_centroid partials [C,3,C_all]); the last two
+    are None without the far field. The launch adds a cluster's slices in
+    slice order and the clusters' partials as a fixed tree; without
+    ``reduce`` d_cents is not set."""
+    c, g = w.shape
+    wg, ca = nb_w.shape[1], cents.shape[1]
+    dev = cs.device
+    lib = _lib()
+    n_slices = _slices(c, g, wg, ca, include_far, slices)
+    nodes = build.tree_nodes(c)
     d_cs = torch.empty((3, c, g), dtype=torch.float32, device=dev)
     d_nb = torch.empty((3, c, wg), dtype=torch.float32, device=dev)
-    part = (torch.empty((c, 3, ca), dtype=torch.float32, device=dev)
-            if include_far else None)
-    err = _lib()["bwd"](*(build.ptr(x) for x in (cs, nb_cs, cents, w, nb_w,
-                                                 mi, nbm, far_w, g_out)),
-                        c, g, wg, ca, int(include_far), build.ptr(d_cs),
-                        build.ptr(d_nb), build.ptr(part),
-                        build.stream_ptr(dev))
+    cs_part = (torch.empty((n_slices, 3, c, g), dtype=torch.float32,
+                           device=dev) if n_slices > 1 else None)
+    d_cents = part = total = rows = None
+    if include_far:
+        pitch = -(-3 * ca // 4) * 4
+        rows = torch.empty((1 + c + nodes, pitch), dtype=torch.float32,
+                           device=dev)
+        total = rows[0]
+        d_cents = total[:3 * ca].unflatten(0, (3, ca))
+        part = rows[1:1 + c, :3 * ca].unflatten(1, (3, ca))
+    err = lib["bwd"](*(build.ptr(x) for x in (cs, nb_cs, cents, w, nb_w,
+                                              mi, nbm, far_w, g_out)),
+                     c, g, wg, ca, int(include_far), slices, int(reduce),
+                     build.ptr(d_cs), build.ptr(cs_part), build.ptr(d_nb),
+                     build.ptr(None if rows is None else rows[1:]),
+                     build.ptr(None if rows is None else rows[1 + c:]),
+                     build.ptr(total),
+                     build.ptr(build.tickets(dev, c + nodes)),
+                     build.stream_ptr(dev))
     build.check(err, "repulsion backward kernel launch")
     launch_rep_bwd.launches += 1
-    return d_cs, d_nb, part
-
-
-def launch_rep_reduce(partial: torch.Tensor) -> torch.Tensor:
-    """Sum the rows of ``partial`` [rows, ...] in row order → [...]."""
-    rows = partial.shape[0]
-    flat = partial.reshape(rows, -1)
-    out = torch.empty((flat.shape[1],), dtype=torch.float32,
-                      device=partial.device)
-    err = _lib()["reduce"](build.ptr(flat), rows, flat.shape[1],
-                           build.ptr(out), build.stream_ptr(partial.device))
-    build.check(err, "repulsion partial-reduction kernel launch")
-    launch_rep_reduce.launches += 1
-    return out.reshape(partial.shape[1:])
+    return d_cs, d_nb, d_cents, part
 
 
 launch_rep_fwd.launches = 0
 launch_rep_bwd.launches = 0
-launch_rep_reduce.launches = 0
 
 
 class RepulsionSum(torch.autograd.Function):
-    """Kernel forward (partials + fixed-order sum); the backward recomputes
-    every pair. Gradients flow to cs, nb_cs and cents only."""
+    """Kernel forward; the backward recomputes every pair. Gradients flow
+    to cs, nb_cs and cents only."""
 
     @staticmethod
     def forward(ctx, cs, nb_cs, cents, w, nb_w, mi, nbm, far_w,
@@ -142,18 +164,17 @@ class RepulsionSum(torch.autograd.Function):
                     or tuple(x.shape) != shape or not x.is_contiguous()):
                 raise ValueError(f"{name} must be a contiguous int32 "
                                  f"{shape} tensor on {dev}")
-        partial = launch_rep_fwd(cs, nb_cs, cents, w, nb_w, mi, nbm, far_w,
-                                 include_far)
+        total, _ = launch_rep_fwd(cs, nb_cs, cents, w, nb_w, mi, nbm, far_w,
+                                  include_far)
         ctx.save_for_backward(cs, nb_cs, cents, w, nb_w, mi, nbm, far_w)
         ctx.include_far = include_far
-        return launch_rep_reduce(partial[:, None])[0]
+        return total
 
     @staticmethod
     def backward(ctx, g_out):
-        saved = ctx.saved_tensors
         g = g_out.detach().reshape(1).float().contiguous()
-        d_cs, d_nb, part = launch_rep_bwd(*saved, g, ctx.include_far)
-        d_cents = None if part is None else launch_rep_reduce(part)
+        d_cs, d_nb, d_cents, _ = launch_rep_bwd(*ctx.saved_tensors, g,
+                                                ctx.include_far)
         return d_cs, d_nb, d_cents, None, None, None, None, None, None
 
 

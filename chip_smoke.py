@@ -8,15 +8,22 @@ non-zero without the final result line:
   1. device      — torch's device name and nvidia-smi's name and power limit;
   2. build       — nvcc-builds every kernel library from csrc/, one nvcc per
                    source, all started together;
-  3. kernels     — K1 and K2 against their plain PyTorch versions at the
-                   config-1 path's shapes (16,384 rays of the 10-view 256²
-                   dango rig, 100 live primitives in a 128-slot table): max
-                   abs error against the stated tolerance, and median
-                   CUDA-event times of both; K1 also at the narrower tables
-                   config 1 trains at (7 live in 8 slots, 25 in 32), with
-                   its and the plain version's gap to a float64 march; the
-                   kernel that packs K1's table, bitwise against its plain
-                   version;
+  3. kernels     — the launch of an empty kernel, timed like the kernels (the
+                   floor under any launch); K1 and K2 against their plain
+                   PyTorch versions at the config-1 path's shapes (16,384
+                   rays of the 10-view 256² dango rig, 100 live primitives in
+                   a 128-slot table): max abs error against the stated
+                   tolerance, median CUDA-event times of both and the
+                   kernel's device time (CUDA-graph replay); K1 also at the
+                   narrower tables config 1 trains at (7 live in 8 slots, 25
+                   in 32), with its and the plain version's gap to a float64
+                   march; K2 also at 10 live in 16 slots (what the step runs
+                   after a short training), its gradients against autograd
+                   of the plain tail, bitwise repeats, exactly zero gradients
+                   in padded slots, and the sum over its per-block partial
+                   rows, which the backward launch holds inside, against
+                   ``sum(0)`` of the same rows; the kernels that pack K1's
+                   and K2's tables, bitwise against their plain versions;
   4. kernels_c4  — K3 against its plain version at config-4 shapes (32 tiles
                    x 512 rays of the 30-view 512² knot rig, K = 2,048,
                    k = 128, tables from a real selection over 5,120
@@ -28,7 +35,8 @@ non-zero without the final result line:
                    backward against autograd of the plain versions, member
                    and monopole, at C = 80 (config 4) and C = 800
                    (M = 51,200), with a bitwise repeat check of its
-                   gradients;
+                   results and its sums over blocks against one PyTorch
+                   ``sum`` of the same parts;
   5. generate    — the port's generator writes the dango dataset (10 views at
                    256²) into a temporary directory;
   6. train       — train_cli at config-1 width (batch 16,384, reference init,
@@ -51,10 +59,14 @@ non-zero without the final result line:
                    steps and the kernel step's device-busy share
                    (torch.profiler).
 The line before the last is {"kernels": [...]}: per kernel its launches on
-the training path, error, time, the plain version's time, ``bound_ms`` (the
-least time the card could take, see ``bound``) and ``library_ms`` (one
-PyTorch call computing the same function, where there is one). The last
-line is {"ok": true, "device": {...}}.
+the training path, error, ``ms`` (the wrapper call between CUDA events),
+``device_ms`` (the same call replayed from a CUDA graph), the plain
+version's time, ``bound_ms`` (the least time the card could take, see
+``bound``) and ``library_ms`` (one PyTorch call computing the same function,
+where there is one). A sum over blocks that a launch holds inside is
+reported with it: ``sum_device_ms`` (the launch with the sum less the launch
+without), ``sum_library_ms`` and ``sum_library_device_ms`` (``sum`` over the
+same parts). The last line is {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py   (from the repository root; needs one GPU)
 """
@@ -78,10 +90,12 @@ N_RAYS = 16384
 M_LIVE, M_SLOTS = 100, 128
 # The narrower tables config 1 trains at (live primitives, slots).
 K1_NARROW = ((7, 8), (25, 32))
+# K2's second shape: what the config-1 step trace runs after 2 x 100 steps.
+K2_NARROW = (10, 16)
 # Train-view PSNR floor after the short 2 x 100-step run: far below a full
 # run's ~30 dB, far above the ~10 dB of an untrained or broken scene.
 MIN_PSNR_DB = 15.0
-LIBRARIES = ("march_shade", "shade", "culled_march", "repulsion")
+LIBRARIES = ("march_shade", "shade", "culled_march", "repulsion", "noop")
 # Config 4 (runs/c4_r2): the knot capture, the prior-seeded init and the
 # per-tile top-K budget.
 C4_VIEWS, C4_SIZE, C4_GT_N, C4_INIT_N = 30, 512, 400, 5120
@@ -122,14 +136,19 @@ def time_ms(torch, fn, reps: int = 25, warmup: int = 3) -> float:
 
 
 def graph_ms(torch, fn, launches: int = 20, reps: int = 5) -> float:
-    """Device time of one ``fn()``: the wrapper call is captured into a CUDA
-    graph ``launches`` times and the graph replayed between CUDA events, so
-    the host's launch work (which exceeds a 0.1 ms kernel's own time) does
-    not enter. Median over ``reps`` replays."""
-    fn()
+    """Device time of one ``fn()``: the call is captured into a CUDA graph
+    ``launches`` times and the graph replayed between CUDA events, so the
+    host's launch work (which exceeds a 0.1 ms kernel's own time) does not
+    enter. Median over ``reps`` replays. Warm-up and capture share one side
+    stream, so that a ``fn`` that runs autograd finds its nodes there."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(launches):
             fn()
     graph.replay()
@@ -318,14 +337,18 @@ def main_path_inputs(torch, dev, live: int = M_LIVE, slots: int = M_SLOTS):
 
 
 def phase_kernels(torch, dev) -> dict:
+    from burn_raymarching_tpu_torch.ops.cuda import build
     from burn_raymarching_tpu_torch.ops.cuda import march_shade_kernel as k1
-    from burn_raymarching_tpu_torch.ops.cuda import shade_kernel as k2
 
-    ro, rd, padded, mask, activate, cot = main_path_inputs(torch, dev)
+    # What any launch pays: an empty kernel, timed like the kernels.
+    emit("launch_floor", what="one launch of an empty kernel",
+         ms=time_ms(torch, lambda: build.launch_noop(dev)),
+         device_ms=graph_ms(torch, lambda: build.launch_noop(dev)))
+    ro, rd, padded, mask, activate, _ = main_path_inputs(torch, dev)
     k = 18.5
     results = {}
     with torch.no_grad():
-        c, col, r, ld, amb = activate(padded)
+        c, _, r, _, _ = activate(padded)
 
     # K1 cold (40 steps) and warm (16 steps from 0.8 t_cold), with the
     # kernel's and the plain version's gap to the same march in float64.
@@ -377,7 +400,7 @@ def phase_kernels(torch, dev) -> dict:
         with torch.no_grad():
             c_n, _, r_n, _, _ = activate(narrow)
         k1_case(ro, rd, c_n, r_n, narrow_mask, f"M={slots}", main=False)
-    main, (t_k, n_k) = k1_case(ro, rd, c, r, mask, f"M={M_SLOTS}", main=True)
+    main, _ = k1_case(ro, rd, c, r, mask, f"M={M_SLOTS}", main=True)
     results["march_shade"] = dict(
         max_abs_err=main["cold"]["max_abs_err_t_hit"], ms=main["ms"],
         device_ms=main["device_ms"], plain_ms=main["plain_ms"],
@@ -392,49 +415,85 @@ def phase_kernels(torch, dev) -> dict:
     results["march_pack"] = dict(
         max_abs_err=err_pack,
         ms=time_ms(torch, lambda: k1.pack_march_table(c, r, mask, k)),
+        device_ms=graph_ms(torch,
+                           lambda: k1.pack_march_table(c, r, mask, k)),
         plain_ms=time_ms(torch, lambda: k1.march_table(c, r, mask, k)),
         **bound(tensor_bytes(c, r, mask, table_k), flops=6.0 * M_SLOTS),
         library_ms=None)
     emit("kernel", name="march_pack", tol=0.0, **results["march_pack"])
 
-    # K2 forward.
-    t_det, n_det = t_k, n_k
+    # The two K2 shapes: the table's (100 live of 128 slots) and the one the
+    # config-1 trace runs after a short training (10 of 16).
+    k2_case(torch, dev, ro, rd, *K2_NARROW, k, failures)
+    results.update(k2_case(torch, dev, ro, rd, M_LIVE, M_SLOTS, k, failures))
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return results
 
-    def shade_args():
-        """Fresh activated parameters, in shade_fused's argument order."""
-        c_, col_, r_, ld_, amb_ = activate(padded)
-        return c_, r_, col_, ld_, amb_
 
+def k2_case(torch, dev, ro, rd, live: int, slots: int, k: float,
+            failures: list) -> dict:
+    """K2 at one table width: the pack kernel bitwise against its plain
+    version, forward and gradients against the plain tail, the backward's
+    fixed-order sum over its partial rows against ``sum(0)``, repeats,
+    padded slots, times → the rows of the ``kernels`` line."""
+    from burn_raymarching_tpu_torch.ops.cuda import march_shade_kernel as k1
+    from burn_raymarching_tpu_torch.ops.cuda import shade_kernel as k2
+
+    _, _, padded, mask, activate, cot = main_path_inputs(torch, dev, live,
+                                                         slots)
+    label = f"K2 {live}/{slots}"
     with torch.no_grad():
-        out_k = k2.shade_fused(ro, rd, t_det, n_det, c, r, col, ld, amb, k,
-                               mask=mask)
-        out_p = k2.shade_plain(ro, rd, t_det, n_det, c, r, col, ld, amb, k,
-                               mask=mask)
-    err_f = (out_k - out_p).abs().max().item()
-    check_close(failures, "K2 forward", err_f, 1e-5)
-    with torch.no_grad():
-        ms = time_ms(torch, lambda: k2.shade_fused(
-            ro, rd, t_det, n_det, c, r, col, ld, amb, k, mask=mask))
-        plain_ms = time_ms(torch, lambda: k2.shade_plain(
-            ro, rd, t_det, n_det, c, r, col, ld, amb, k, mask=mask))
-    # K2 per (ray, live primitive) pair: a sqrt and an exp for the soft-min
-    # at p0, a sqrt and two exps (softmax weight, soft-min) at p; the
-    # backward recomputes them. ~30 other FP32 operations forward, ~60
-    # backward.
-    pairs = float(N_RAYS * M_LIVE)
+        c, col, r, ld, amb = activate(padded)
+        t_det, n_det = k1.march_shade(ro, rd, c, r, k, mask=mask)
+    pairs = float(N_RAYS * live)
     rays_in = (ro, rd, t_det, n_det, c, r, col)
-    fwd_bound = bound(tensor_bytes(*rays_in, out_k), sfu_ops=5.0 * pairs,
-                      flops=30.0 * pairs)
-    emit("kernel", name="shade_fwd", max_abs_err=err_f, tol=1e-5, ms=ms,
-         plain_ms=plain_ms, **fwd_bound)
-    results["shade_fwd"] = dict(max_abs_err=err_f, ms=ms, plain_ms=plain_ms,
-                                **fwd_bound, library_ms=None)
+    results = {}
 
-    # K2 gradients (all five parameter groups) against autograd of the plain
+    # The kernel that packs the table, bitwise against its plain version.
+    pack_args = (c, r, col, mask, ld, amb)
+    table = k2.pack_shade_table(*pack_args)
+    err_pack = (table - k2.shade_table(*pack_args)).abs().max().item()
+    check_close(failures, f"{label} table pack", err_pack, 0.0)
+    results["shade_pack"] = dict(
+        max_abs_err=err_pack,
+        ms=time_ms(torch, lambda: k2.pack_shade_table(*pack_args)),
+        device_ms=graph_ms(torch, lambda: k2.pack_shade_table(*pack_args)),
+        plain_ms=time_ms(torch, lambda: k2.shade_table(*pack_args)),
+        **bound(tensor_bytes(c, r, col, mask, ld, amb, table),
+                flops=6.0 * slots), library_ms=None)
+    emit("kernel", name="shade_pack", slots=slots, live=live, tol=0.0,
+         **results["shade_pack"])
+
+    # Forward (pack + kernel, as the training step calls it).
+    def fwd(fn):
+        with torch.no_grad():
+            return fn(ro, rd, t_det, n_det, c, r, col, ld, amb, k, mask=mask)
+
+    out_k, out_p = fwd(k2.shade_fused), fwd(k2.shade_plain)
+    err_f = (out_k - out_p).abs().max().item()
+    check_close(failures, f"{label} forward", err_f, 1e-5)
+    # Per (ray, live primitive) pair: a sqrt and an exp for the soft-min at
+    # p0, a sqrt and two exps (softmax weight, soft-min) at p; the backward
+    # recomputes them. ~30 other FP32 operations forward, ~60 backward.
+    results["shade_fwd"] = dict(
+        max_abs_err=err_f, ms=time_ms(torch, lambda: fwd(k2.shade_fused)),
+        device_ms=graph_ms(torch, lambda: fwd(k2.shade_fused)),
+        kernel_device_ms=graph_ms(torch, lambda: k2.launch_shade_fwd(
+            ro, rd, t_det, n_det, table, k)),
+        plain_ms=time_ms(torch, lambda: fwd(k2.shade_plain)),
+        **bound(tensor_bytes(*rays_in, out_k), sfu_ops=5.0 * pairs,
+                flops=30.0 * pairs), library_ms=None)
+    emit("kernel", name="shade_fwd", slots=slots, live=live, tol=1e-5,
+         **results["shade_fwd"])
+
+    # Gradients (all five parameter groups) against autograd of the plain
     # tail; tolerance relative to each group's largest gradient.
     def grads(fn):
-        out = fn(ro, rd, t_det, n_det, *shade_args(), k, mask=mask)
-        return torch.autograd.grad((out * cot).sum(), list(padded.parameters()))
+        c_, col_, r_, ld_, amb_ = activate(padded)
+        out = fn(ro, rd, t_det, n_det, c_, r_, col_, ld_, amb_, k, mask=mask)
+        return torch.autograd.grad((out * cot).sum(),
+                                   list(padded.parameters()))
 
     g_k = grads(k2.shade_fused)
     g_p = grads(k2.shade_plain)
@@ -443,52 +502,58 @@ def phase_kernels(torch, dev) -> dict:
                            "ambient"), g_k, g_p):
         err = (a - b).abs().max().item()
         tol = 1e-3 * b.abs().max().item() + 1e-6
-        check_close(failures, f"K2 grad {name}", err, tol)
+        check_close(failures, f"{label} grad {name}", err, tol)
         err_g[name] = [err, tol]
-    pad_zero = all(bool((g[M_LIVE:] == 0).all()) for g in g_k[:3])
+    pad_zero = all(bool((g[live:] == 0).all()) for g in g_k[:3])
     if not pad_zero:
-        failures.append("K2 gradients of padded slots are not zero")
+        failures.append(f"{label}: gradients of padded slots are not zero")
     deterministic = all(bool(torch.equal(a, b)) for a, b in
                         zip(g_k, grads(k2.shade_fused)))
     if not deterministic:
-        failures.append("K2 gradients differ between two identical runs")
+        failures.append(f"{label}: gradients differ between two runs")
 
-    # Backward kernel and the partial reduction, alone.
-    prim = k2.shade_table(c, r, col, mask)
-    scal = torch.cat([torch.full((1,), k, device=dev), ld.detach(),
-                      amb.detach(), torch.zeros(3, device=dev)]).contiguous()
-    partial = k2.launch_shade_bwd(ro, rd, t_det, n_det, prim, scal, cot)
-    red = k2.launch_shade_reduce(partial)
-    err_red = (red - partial.sum(0)).abs().max().item()
-    check_close(failures, "K2 partial reduction", err_red,
+    # The backward launch alone: its fixed-order sum over the partial rows
+    # against sum(0) of the same rows, and the l̂ -> light projection.
+    bwd_args = (ro, rd, t_det, n_det, table, k, cot)
+    *d_all, partial = k2.launch_shade_bwd(*bwd_args)
+    total = partial.sum(0)
+    m = slots
+    lhat, l_norm = table[2 * m, :3], table[2 * m + 1, 0]
+    d_lhat = total[7 * m:7 * m + 3]
+    want = torch.cat([total[:3 * m].reshape(3, m).T.reshape(-1),
+                      total[3 * m:4 * m],
+                      total[4 * m:7 * m].reshape(3, m).T.reshape(-1),
+                      (d_lhat - lhat * torch.sum(lhat * d_lhat)) / l_norm,
+                      total[7 * m + 3:]])
+    got = torch.cat([x.reshape(-1) for x in d_all])
+    err_red = (got - want).abs().max().item()
+    check_close(failures, f"{label} sum over partial rows", err_red,
                 1e-5 * partial.abs().sum(0).max().item() + 1e-6)
-    out_plain = k2.shade_plain(ro, rd, t_det, n_det, *shade_args(), k,
-                               mask=mask)
+    c_p, col_p, r_p, ld_p, amb_p = activate(padded)
+    out_plain = k2.shade_plain(ro, rd, t_det, n_det, c_p, r_p, col_p, ld_p,
+                               amb_p, k, mask=mask)
     params_list = list(padded.parameters())
-    bwd_ms = time_ms(torch, lambda: k2.launch_shade_bwd(
-        ro, rd, t_det, n_det, prim, scal, cot))
-    bwd_plain_ms = time_ms(torch, lambda: torch.autograd.grad(
-        out_plain, params_list, cot, retain_graph=True))
-    red_ms = time_ms(torch, lambda: k2.launch_shade_reduce(partial))
-    red_plain_ms = time_ms(torch, lambda: partial.sum(0))
-    bwd_bound = bound(tensor_bytes(*rays_in, cot, partial),
-                      sfu_ops=5.0 * pairs, flops=60.0 * pairs)
-    red_bound = bound(tensor_bytes(partial, red))
-    emit("kernel", name="shade_bwd", max_abs_err_and_tol=err_g,
-         padded_slots_zero=pad_zero, bitwise_repeatable=deterministic,
-         ms=bwd_ms, plain_ms=bwd_plain_ms,
-         partial_rows=partial.shape[0], **bwd_bound)
-    emit("kernel", name="shade_reduce", max_abs_err=err_red, ms=red_ms,
-         plain_ms=red_plain_ms, **red_bound)
-    results["shade_bwd"] = dict(max_abs_err=max(e for e, _ in err_g.values()),
-                                ms=bwd_ms, plain_ms=bwd_plain_ms,
-                                **bwd_bound, library_ms=None)
-    # One PyTorch call computes the reduction: sum(0), the plain version.
-    results["shade_reduce"] = dict(max_abs_err=err_red, ms=red_ms,
-                                   plain_ms=red_plain_ms, **red_bound,
-                                   library_ms=red_plain_ms)
-    if failures:
-        raise AssertionError("; ".join(failures))
+    bwd_dev = graph_ms(torch, lambda: k2.launch_shade_bwd(*bwd_args))
+    no_sum_dev = graph_ms(torch, lambda: k2.launch_shade_bwd(
+        *bwd_args, reduce=False))
+    results["shade_bwd"] = dict(
+        max_abs_err=max(e for e, _ in err_g.values()),
+        ms=time_ms(torch, lambda: k2.launch_shade_bwd(*bwd_args)),
+        device_ms=bwd_dev,
+        plain_ms=time_ms(torch, lambda: torch.autograd.grad(
+            out_plain, params_list, cot, retain_graph=True)),
+        **bound(tensor_bytes(*rays_in, cot, *d_all), sfu_ops=5.0 * pairs,
+                flops=60.0 * pairs),
+        # No PyTorch call computes the backward; ``sum(0)`` computes the sum
+        # over the partial rows that the launch holds inside.
+        library_ms=None, partial_rows=partial.shape[0],
+        sum_max_abs_err=err_red, sum_device_ms=bwd_dev - no_sum_dev,
+        sum_library_ms=time_ms(torch, lambda: partial.sum(0)),
+        sum_library_device_ms=graph_ms(torch, lambda: partial.sum(0)),
+        sum_bound_ms=bound(tensor_bytes(partial, total))["bound_ms"])
+    emit("kernel", name="shade_bwd", slots=slots, live=live,
+         max_abs_err_and_tol=err_g, padded_slots_zero=pad_zero,
+         bitwise_repeatable=deterministic, **results["shade_bwd"])
     return results
 
 
@@ -579,7 +644,9 @@ K4_TOLS = {"value_rel": 1e-4, "grad_rel_to_max": 1e-4}
 def k4_case(torch, dev, n: int, far_field: str, failures: list) -> dict:
     """K4 at ``n`` knot-seeded primitives with the main path's frozen static
     prep: the kernels against autograd of the plain planes sum, the whole
-    wrapper against train/loss.cluster_repulsion, bitwise repeats, times."""
+    wrapper against train/loss.cluster_repulsion, the sums over blocks that
+    the launches hold inside against one PyTorch call, bitwise repeats,
+    times."""
     from burn_raymarching_tpu_torch.ops.cuda import repulsion_kernel as k4
     from burn_raymarching_tpu_torch.ops.culling import build_clusters
     from burn_raymarching_tpu_torch.train.loss import (
@@ -621,22 +688,24 @@ def k4_case(torch, dev, n: int, far_field: str, failures: list) -> dict:
     grads_p = [torch.zeros_like(x) if g is None else g
                for x, g in zip(leaves, torch.autograd.grad(
                    s_p, leaves, retain_graph=True, allow_unused=True))]
-    partial = k4.launch_rep_fwd(*planes, include_far)
-    s_k = k4.launch_rep_reduce(partial[:, None])[0]
+    s_k, partial = k4.launch_rep_fwd(*planes, include_far)
     g1 = torch.ones((1,), device=dev)
     first = k4.launch_rep_bwd(*planes, g1, include_far)
     second = k4.launch_rep_bwd(*planes, g1, include_far)
+    out["blocks"] = partial.numel()
     out["bitwise_repeatable"] = all(
-        torch.equal(a, b) for a, b in zip(first, second) if a is not None)
+        torch.equal(a, b) for a, b in zip(first, second) if a is not None
+    ) and torch.equal(s_k, k4.launch_rep_fwd(*planes, include_far)[0])
     if not out["bitwise_repeatable"]:
-        failures.append(f"{label}: gradients differ between two runs")
-    d_cents = (k4.launch_rep_reduce(first[2]) if include_far
-               else torch.zeros_like(grads_p[2]))
+        failures.append(f"{label}: results differ between two runs")
+    d_cs, d_nb, d_cents, cent_part = first
+    if not include_far:
+        d_cents = torch.zeros_like(grads_p[2])
     out["fwd_value_abs_err"] = abs(s_k - s_p).item()
     out["fwd_value_rel_err"] = out["fwd_value_abs_err"] / abs(s_p).item()
     out["bwd_grad_max_abs_err"] = max(
         (a - b).abs().max().item()
-        for a, b in zip((first[0], first[1], d_cents), grads_p))
+        for a, b in zip((d_cs, d_nb, d_cents), grads_p))
     out["bwd_grad_err_rel_to_max"] = out["bwd_grad_max_abs_err"] / max(
         g.abs().max().item() for g in grads_p)
     for key, tol in (("wrapper_value_rel_err", "value_rel"),
@@ -645,18 +714,48 @@ def k4_case(torch, dev, n: int, far_field: str, failures: list) -> dict:
                      ("bwd_grad_err_rel_to_max", "grad_rel_to_max")):
         check_close(failures, f"{label} {key}", out[key], K4_TOLS[tol])
 
+    # The sums that the launches hold inside, against one PyTorch call on
+    # the same parts: the forward's scalar over its blocks, the backward's
+    # d_centroids over the clusters.
+    out["fwd_sum_rel_err"] = (abs(s_k - partial.sum()) / abs(s_k)).item()
+    check_close(failures, f"{label} forward sum over blocks",
+                out["fwd_sum_rel_err"], 1e-6)
+    if include_far:
+        out["bwd_sum_abs_err"] = (d_cents - cent_part.sum(0)).abs().max(
+            ).item()
+        out["bwd_sum_rel_err"] = (out["bwd_sum_abs_err"]
+                                  / cent_part.abs().sum(0).max().item())
+        check_close(failures, f"{label} d_centroids sum over clusters",
+                    out["bwd_sum_rel_err"], 1e-6)
+
+    def fwd(**kw):
+        return k4.launch_rep_fwd(*planes, include_far, **kw)
+
+    def bwd(**kw):
+        return k4.launch_rep_bwd(*planes, g1, include_far, **kw)
+
     with torch.no_grad():
-        out["fwd_ms"] = time_ms(torch, lambda: k4.launch_rep_fwd(
-            *planes, include_far))
+        out["fwd_ms"] = time_ms(torch, fwd)
+        out["fwd_device_ms"] = graph_ms(torch, fwd)
+        out["fwd_sum_device_ms"] = out["fwd_device_ms"] - graph_ms(
+            torch, lambda: fwd(reduce=False))
+        out["fwd_sum_library_ms"] = time_ms(torch, lambda: partial.sum())
+        out["fwd_sum_library_device_ms"] = graph_ms(torch,
+                                                    lambda: partial.sum())
         out["fwd_plain_ms"] = time_ms(torch, lambda: k4.repulsion_sum_plain(
             *planes, include_far))
-    out["bwd_ms"] = time_ms(torch, lambda: k4.launch_rep_bwd(
-        *planes, g1, include_far))
+    out["bwd_ms"] = time_ms(torch, bwd)
+    out["bwd_device_ms"] = graph_ms(torch, bwd)
     out["bwd_plain_ms"] = time_ms(torch, lambda: torch.autograd.grad(
         s_p, leaves, retain_graph=True, allow_unused=True))
-    part = first[2] if include_far else partial[:, None]
-    out["reduce_ms"] = time_ms(torch, lambda: k4.launch_rep_reduce(part))
-    out["reduce_plain_ms"] = time_ms(torch, lambda: part.sum(0))
+    if include_far:
+        out["bwd_sum_device_ms"] = out["bwd_device_ms"] - graph_ms(
+            torch, lambda: bwd(reduce=False))
+        out["bwd_sum_library_ms"] = time_ms(torch, lambda: cent_part.sum(0))
+        out["bwd_sum_library_device_ms"] = graph_ms(
+            torch, lambda: cent_part.sum(0))
+        out["bwd_sum_bound_ms"] = bound(tensor_bytes(cent_part, d_cents))[
+            "bound_ms"]
     # Per pair a sqrt and a reciprocal, forward and backward, among ~12
     # (forward) and ~25 (backward) other FP32 operations.
     c_dim, g_dim = planes[0].shape[1], planes[0].shape[2]
@@ -664,16 +763,11 @@ def k4_case(torch, dev, n: int, far_field: str, failures: list) -> dict:
                                    + (planes[2].shape[1] if include_far
                                       else 0)))
     out["pairs"] = pairs
-    out["fwd_bound"] = bound(tensor_bytes(*planes, partial),
+    out["fwd_bound"] = bound(tensor_bytes(*planes, s_k),
                              sfu_ops=2.0 * pairs, flops=12.0 * pairs)
-    out["bwd_bound"] = bound(tensor_bytes(*planes, *first),
+    out["bwd_bound"] = bound(tensor_bytes(*planes, d_cs, d_nb,
+                                          first[2]),
                              sfu_ops=2.0 * pairs, flops=25.0 * pairs)
-    out["reduce_bound"] = bound(tensor_bytes(part, part[0]))
-    out["reduce_abs_err"] = (k4.launch_rep_reduce(part)
-                             - part.sum(0)).abs().max().item()
-    out["reduce_rel_err"] = (out["reduce_abs_err"]
-                             / part.abs().sum(0).max().item())
-    check_close(failures, f"{label} reduce", out["reduce_rel_err"], 1e-6)
     return out
 
 
@@ -775,23 +869,28 @@ def phase_kernels_c4(torch, dev) -> dict:
         emit("kernel", name="repulsion", **case)
         cases[(n, far_field)] = case
     # Errors of the repulsion term as the loss sees it (the sum over
-    # n_valid^2, and its gradient in the centers); the reduction's on the
-    # raw partial sums, with its relative error beside it.
+    # n_valid^2, and its gradient in the centers). No PyTorch call computes
+    # the kernels' function; ``sum`` computes the sums over blocks that the
+    # launches hold inside (the ``sum_*`` fields).
     main = cases[(C4_INIT_N, "member")]
     results["repulsion_fwd"] = dict(
         max_abs_err=main["wrapper_value_abs_err"],
         max_rel_err=main["wrapper_value_rel_err"], ms=main["fwd_ms"],
-        plain_ms=main["fwd_plain_ms"], **main["fwd_bound"], library_ms=None)
+        device_ms=main["fwd_device_ms"], plain_ms=main["fwd_plain_ms"],
+        **main["fwd_bound"], library_ms=None, blocks=main["blocks"],
+        sum_device_ms=main["fwd_sum_device_ms"],
+        sum_library_ms=main["fwd_sum_library_ms"],
+        sum_library_device_ms=main["fwd_sum_library_device_ms"])
     results["repulsion_bwd"] = dict(
         max_abs_err=main["wrapper_grad_max_abs_err"],
         max_rel_err=main["wrapper_grad_err_rel_to_max"], ms=main["bwd_ms"],
-        plain_ms=main["bwd_plain_ms"], **main["bwd_bound"], library_ms=None)
-    # One PyTorch call computes the reduction: sum(0), the plain version.
-    results["repulsion_reduce"] = dict(
-        max_abs_err=main["reduce_abs_err"],
-        max_rel_err=main["reduce_rel_err"], ms=main["reduce_ms"],
-        plain_ms=main["reduce_plain_ms"], **main["reduce_bound"],
-        library_ms=main["reduce_plain_ms"])
+        device_ms=main["bwd_device_ms"], plain_ms=main["bwd_plain_ms"],
+        **main["bwd_bound"], library_ms=None,
+        sum_max_abs_err=main["bwd_sum_abs_err"],
+        sum_device_ms=main["bwd_sum_device_ms"],
+        sum_library_ms=main["bwd_sum_library_ms"],
+        sum_library_device_ms=main["bwd_sum_library_device_ms"],
+        sum_bound_ms=main["bwd_sum_bound_ms"])
     if failures:
         raise AssertionError("; ".join(failures))
     return results
@@ -850,9 +949,9 @@ def step_rate(torch, trainer, final, mask, steps: int = 30,
 
 # The __global__ functions under csrc/, as a trace names them.
 HAND_KERNELS = ("march_shade_kernel", "march_pack_kernel",
-                "culled_march_kernel", "shade_fwd_kernel",
-                "shade_bwd_kernel", "shade_reduce_kernel", "rep_fwd_kernel",
-                "rep_bwd_kernel", "rep_reduce_kernel")
+                "culled_march_kernel", "shade_pack_kernel",
+                "shade_fwd_kernel", "shade_bwd_kernel", "rep_fwd_kernel",
+                "rep_bwd_kernel")
 
 
 def device_profile(torch, trainer, final, mask, t_cache, steps: int = 10
@@ -915,9 +1014,9 @@ def phase_generate_and_train(torch) -> dict:
 
     counters = {"march_shade": k1.march_shade,
                 "march_pack": k1.pack_march_table,
+                "shade_pack": k2.pack_shade_table,
                 "shade_fwd": k2.launch_shade_fwd,
-                "shade_bwd": k2.launch_shade_bwd,
-                "shade_reduce": k2.launch_shade_reduce}
+                "shade_bwd": k2.launch_shade_bwd}
     with tempfile.TemporaryDirectory() as tmp:
         data = os.path.join(tmp, "data")
         t0 = time.perf_counter()
@@ -988,8 +1087,7 @@ def phase_c4(torch) -> dict:
 
     counters = {"culled_march": k3.culled_march_normals,
                 "repulsion_fwd": k4.launch_rep_fwd,
-                "repulsion_bwd": k4.launch_rep_bwd,
-                "repulsion_reduce": k4.launch_rep_reduce}
+                "repulsion_bwd": k4.launch_rep_bwd}
     with tempfile.TemporaryDirectory() as tmp:
         data = os.path.join(tmp, "data")
         t0 = time.perf_counter()
@@ -1053,17 +1151,18 @@ SOURCES = {
     # The table build of the TPU kernel's wrapper (no kernel of its own).
     "march_pack": (_CSRC + "march_shade.cu",
                    _PALLAS + "march_shade_kernel.py:237"),
+    # The table build of the TPU kernel's wrapper (no kernel of its own).
+    "shade_pack": (_CSRC + "shade.cu", _PALLAS + "shade_kernel.py:345"),
     "shade_fwd": (_CSRC + "shade.cu", _PALLAS + "shade_kernel.py:265"),
+    # The TPU backward summed over its sequential grid; here the sum over
+    # blocks is part of the launch (the ``sum_*`` fields).
     "shade_bwd": (_CSRC + "shade.cu", _PALLAS + "shade_kernel.py:283"),
-    "shade_reduce": (_CSRC + "shade.cu", _PALLAS + "shade_kernel.py:283"),
     "culled_march": (_CSRC + "culled_march.cu",
                      _PALLAS + "culled_march_kernel.py:154"),
     "repulsion_fwd": (_CSRC + "repulsion.cu",
                       _PALLAS + "repulsion_kernel.py:205"),
     "repulsion_bwd": (_CSRC + "repulsion.cu",
                       _PALLAS + "repulsion_kernel.py:227"),
-    "repulsion_reduce": (_CSRC + "repulsion.cu",
-                         _PALLAS + "repulsion_kernel.py:227"),
 }
 
 

@@ -7,6 +7,9 @@ entry (float32 sums over thousands of pairs in another order). Static vs
 live prep at equal centers: exact, as tests/test_repulsion_kernel.py:146
 requires of the JAX package. On the CPU the K4 wrapper runs its plain
 version; the cuda-marked tests hold the CUDA kernel against it on a GPU.
+The kernels cut each cluster's columns into slices, one block each, and add
+the slices in slice order: torch_parity.repulsion_sum_sliced models that in
+plain PyTorch and is held against the plain sum and the JAX package here.
 """
 
 import functools
@@ -16,7 +19,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import cuda_device, jax_params, nn, random_raw_params, tt  # noqa: F401,E501
+from torch_parity import (  # noqa: F401  (cuda_device is a fixture)
+    cuda_device,
+    jax_params,
+    nn,
+    random_raw_params,
+    repulsion_sum_sliced,
+    tt,
+)
 
 from burn_raymarching_tpu.ops.culling import build_clusters as j_clusters
 from burn_raymarching_tpu.ops.pallas.repulsion_kernel import (
@@ -154,6 +164,41 @@ def test_compute_loss_routes_cluster_repulsion_like_jax(far_field):
                                        atol=1e-6 * np.abs(want).max())
 
 
+# --- The kernels' slice decomposition, modelled on the CPU -------------- #
+
+SLICE_CLOUDS = {
+    # name: (primitives, group) -> clusters C, columns W·G (+ C_all)
+    "C=25": (200, 8),
+    "C=1": (6, 8),              # one cluster: C_all = 1, smaller than a slice
+    "C=3": (20, 8),             # C_all = 3 centroids in a slice of >= 9
+}
+
+
+@pytest.mark.parametrize("slices", [1, 2, 4, 8])
+@pytest.mark.parametrize("far_field", ["member", "monopole"])
+@pytest.mark.parametrize("cloud", sorted(SLICE_CLOUDS))
+def test_sliced_sum_matches_plain_and_jax(monkeypatch, cloud, far_field,
+                                          slices):
+    """Value 1e-6 relative, gradients 1e-5 of the largest entry: the same
+    float32 terms, added slice by slice."""
+    m, group = SLICE_CLOUDS[cloud]
+    centers, mask, _ = make_cloud(m, seed=m)
+    mask[:2] = True
+
+    def sliced(*planes):
+        return repulsion_sum_sliced(*planes, slices=slices)
+
+    plain = _torch(k4.cluster_repulsion_fused, centers, mask, group,
+                   far_field, static=True)
+    monkeypatch.setattr(k4, "repulsion_sum", sliced)
+    got = _torch(k4.cluster_repulsion_fused, centers, mask, group, far_field,
+                 static=True)
+    for want in (plain, _jax(centers, mask, group, far_field, True)):
+        np.testing.assert_allclose(got[0], want[0], rtol=1e-6)
+        np.testing.assert_allclose(got[1], want[1], rtol=0,
+                                   atol=1e-5 * np.abs(want[1]).max())
+
+
 # --- CUDA kernel against its plain version (GPU only) ------------------- #
 
 @pytest.mark.cuda
@@ -183,3 +228,42 @@ def test_cuda_kernel_gradients_are_bitwise_repeatable(cuda_device):
     second = k4.launch_rep_bwd(*planes, g, True)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+    assert torch.equal(k4.launch_rep_fwd(*planes, True)[0],
+                       k4.launch_rep_fwd(*planes, True)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slices", [0, 1, 2, 3, 5, 8, 1000])
+@pytest.mark.parametrize("m,group,include_far", [(450, 64, True),
+                                                 (450, 64, False),
+                                                 (100, 12, True),
+                                                 (40, 64, True)])
+def test_cuda_launches_match_plain_for_every_slice_count(cuda_device, m,
+                                                         group, include_far,
+                                                         slices):
+    """C = 8 (not a multiple of most slice counts), G = 12 (rows padded to
+    16 inside the kernel) and C = 1 against autograd of the plain sum;
+    the launches' own sums against the sums of their parts; two runs
+    bitwise equal. 1000 slices: clipped to one column each."""
+    centers, mask, _ = make_cloud(m, seed=m)
+    cl = build_clusters(centers, mask=mask, group=group, device=cuda_device)
+    planes, *_ = k4.repulsion_planes(tt(centers).to(cuda_device), cl,
+                                     tt(mask).to(cuda_device))
+    leaves = [x.clone().requires_grad_() for x in planes[:3]]
+    s_p = k4.repulsion_sum_plain(*leaves, *planes[3:], include_far)
+    want = torch.autograd.grad(s_p, leaves, allow_unused=True)
+    s_k, partial = k4.launch_rep_fwd(*planes, include_far, slices=slices)
+    np.testing.assert_allclose(s_k.item(), s_p.item(), rtol=1e-5)
+    np.testing.assert_allclose(s_k.item(), partial.sum().item(), rtol=1e-6)
+    g = torch.ones((1,), device=cuda_device)
+    first = k4.launch_rep_bwd(*planes, g, include_far, slices=slices)
+    second = k4.launch_rep_bwd(*planes, g, include_far, slices=slices)
+    scale = max(w.abs().max().item() for w in want if w is not None)
+    for a, b, w in zip(first, second, want):
+        assert (a is None) == (w is None)
+        if a is not None:
+            assert torch.equal(a, b)
+            assert (a - w).abs().max().item() <= 1e-5 * scale
+    if include_far:
+        np.testing.assert_allclose(nn(first[2]), nn(first[3].sum(0)),
+                                   rtol=1e-5, atol=1e-6 * scale)

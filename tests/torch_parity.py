@@ -113,3 +113,163 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
     return torch.device("cuda", 0)
+
+
+def _table_dists(p: torch.Tensor, table: torch.Tensor, n: int):
+    """[N, n] surface distances of points p against the first n columns of a
+    K2 table (shade_kernel.shade_table), in the kernels' expanded form, and
+    the unclamped squared distances."""
+    cq, r = table[:n, :4], table[table.shape[0] // 2 - 1:, 0][:n]
+    px, py, pz = (p[:, i, None] for i in range(3))
+    p_sq = (px * px + py * py) + pz * pz
+    q = (p_sq + cq[None, :, 3]) - 2.0 * (
+        px * cq[None, :, 0] + (py * cq[None, :, 1] + pz * cq[None, :, 2]))
+    return torch.sqrt(torch.clamp(q, min=1e-6)) - r[None, :], q
+
+
+def _shade_table_parts(table: torch.Tensor):
+    m = table.shape[0] // 2 - 1
+    return (m, int(table[2 * m + 1, 1]), table[m:2 * m, 1:4],
+            table[2 * m, :3], table[2 * m, 3], table[2 * m + 1, 0])
+
+
+def shade_online(ro, rd, t, normal, table, k: float, lanes: int = 4
+                 ) -> torch.Tensor:
+    """The K2 forward kernel's arithmetic in plain PyTorch → [N, 3]: only
+    the table's live columns are visited; ``lanes`` lanes stride over them,
+    each with a running minimum distance dm and sums relative to it (a
+    column at delta = d − dm adds e = exp(−c·|delta|) as s + e, or as
+    s·e + 1 when it lowers the minimum, the colour sums rescaled like s10);
+    the lanes merge by the overall minimum. One pass at p0, one at p."""
+    m, n, colors, lhat, amb, _ = _shade_table_parts(table)
+    inf = torch.tensor(torch.inf, dtype=ro.dtype)
+
+    def one_pass(p, rates, with_colors):
+        d_all, _ = _table_dists(p, table, n)
+        rows = p.shape[0]
+        dm = inf.expand(rows, lanes).clone()
+        sums = [torch.zeros((rows, lanes), dtype=ro.dtype) for _ in rates]
+        cols = torch.zeros((rows, lanes, 3), dtype=ro.dtype)
+        for j in range(n):
+            lane, d = j % lanes, d_all[:, j]
+            delta = d - dm[:, lane]
+            lower = delta < 0
+            for which, (s, rate) in enumerate(zip(sums, rates)):
+                e = torch.exp(-rate * delta.abs())
+                a, b = torch.where(lower, e, 1.0), torch.where(lower, 1.0, e)
+                s[:, lane] = s[:, lane] * a + b
+                if with_colors and which == 0:
+                    cols[:, lane] = (cols[:, lane] * a[:, None]
+                                     + b[:, None] * colors[j][None, :])
+            dm[:, lane] = torch.minimum(dm[:, lane], d)
+        dmin = dm.amin(dim=1, keepdim=True)
+        totals = []
+        for which, (s, rate) in enumerate(zip(sums, rates)):
+            scale = torch.exp(-rate * (dm - dmin))
+            totals.append(torch.sum(s * scale, dim=1, keepdim=True))
+            if with_colors and which == 0:
+                cols = torch.sum(cols * scale[:, :, None], dim=1)
+        return dmin, totals, cols
+
+    def softmin(dmin, s):
+        return (torch.log(torch.clamp(s, min=1e-8)) + dmin * (-k)) / (-k)
+
+    dmin0, (s0,), _ = one_pass(ro + rd * t, (k,), False)
+    p = ro + rd * (t + softmin(dmin0, s0))
+    dmin, (s10, sk), csum = one_pass(p, (10.0, k), True)
+    dot = torch.sum(normal * lhat[None, :], dim=1, keepdim=True)
+    lighting = amb + torch.clamp(dot, min=0.0) * (1.0 - amb)
+    cov = 1.0 / (1.0 + torch.exp(softmin(dmin, sk) * 15.0))
+    return (csum / s10) * lighting * cov
+
+
+def shade_backward_model(ro, rd, t, normal, table, k: float, g):
+    """The K2 backward kernel's arithmetic in plain PyTorch → (d_centers
+    [M,3], d_radii [M], d_colors [M,3], d_light [3], d_ambient [1]): the
+    forward recomputed relative to the row minima, wsum taken as dmix·mix
+    (no pass over the columns), pass B at p, pass C at p0, and the l̂ → light
+    projection folded in. Columns past the live count get exactly 0."""
+    m, n, colors_all, lhat, amb, l_norm = _shade_table_parts(table)
+    colors, centers = colors_all[:n], table[:n, :3]
+
+    def weights(p, rate):
+        d, q = _table_dists(p, table, n)
+        e = torch.exp(-rate * (d - d.amin(dim=1, keepdim=True)))
+        return d, q, e, torch.sum(e, dim=1, keepdim=True)
+
+    p0 = ro + rd * t
+    d0, q0, e0, s0 = weights(p0, k)
+    s0 = torch.clamp(s0, min=1e-8)
+    dmin0 = d0.amin(dim=1, keepdim=True)
+    p = ro + rd * (t + (torch.log(s0) + dmin0 * (-k)) / (-k))
+    d, q, e10, s10 = weights(p, 10.0)
+    _, _, ek, sk = weights(p, k)
+    sk = torch.clamp(sk, min=1e-8)
+    mix = (e10 @ colors) / s10
+    dist_scene = (torch.log(sk) + d.amin(dim=1, keepdim=True) * (-k)) / (-k)
+    cov = 1.0 / (1.0 + torch.exp(dist_scene * 15.0))
+    dot = torch.sum(normal * lhat[None, :], dim=1, keepdim=True)
+    diff = torch.clamp(dot, min=0.0)
+    lighting = amb + diff * (1.0 - amb)
+
+    g_dot_mix = torch.sum(g * mix, dim=1, keepdim=True)
+    d_mix = g * lighting * cov
+    d_light_scalar = g_dot_mix * cov
+    d_cov = g_dot_mix * lighting
+    d_amb = torch.sum(d_light_scalar * (1.0 - diff)).reshape(1)
+    d_dot = torch.where(dot > 0, d_light_scalar * (1.0 - amb), 0.0)
+    d_lhat = torch.sum(d_dot * normal, dim=0)
+    d_light = (d_lhat - lhat * torch.sum(lhat * d_lhat)) / l_norm
+
+    wsum = torch.sum(d_mix * mix, dim=1, keepdim=True)
+    d_ds = d_cov * (-15.0) * cov * (1.0 - cov)
+    w, v = e10 / s10, ek / sk
+    d_D = -10.0 * w * (d_mix @ colors.T - wsum) + d_ds * v
+    dq = torch.where(q > 1e-6, d_D * 0.5
+                     / torch.sqrt(torch.clamp(q, min=1e-6)), 0.0)
+    d_c = 2.0 * (centers * dq.sum(0)[:, None] - dq.T @ p)
+    d_r = -d_D.sum(0)
+    d_col = w.T @ d_mix
+    d_p = 2.0 * (p * dq.sum(1, keepdim=True) - dq @ centers)
+    dd0 = torch.sum(rd * d_p, dim=1, keepdim=True) * (e0 / s0)
+    dq0 = torch.where(q0 > 1e-6, dd0 * 0.5
+                      / torch.sqrt(torch.clamp(q0, min=1e-6)), 0.0)
+    d_c = d_c + 2.0 * (centers * dq0.sum(0)[:, None] - dq0.T @ p0)
+    d_r = d_r - dd0.sum(0)
+
+    def pad(x):
+        out = torch.zeros((m, *x.shape[1:]), dtype=x.dtype)
+        out[:n] = x
+        return out
+
+    return pad(d_c), pad(d_r), pad(d_col), d_light, d_amb
+
+
+def repulsion_sum_sliced(cs, nb_cs, cents, w, nb_w, mi, nbm, far_w,
+                         include_far: bool, slices: int) -> torch.Tensor:
+    """The K4 kernels' decomposition in plain PyTorch: each cluster's
+    columns (its neighbors' members, then with ``include_far`` every
+    centroid, which carries the cluster's far weight and matches no member
+    id) are cut into ``slices`` equal slices and the slices' sums are added
+    in slice order."""
+    c_count, wg = nb_w.shape
+    col_xyz, col_w, col_id = nb_cs, nb_w, nbm
+    if include_far:
+        ca = cents.shape[1]
+        col_xyz = torch.cat([nb_cs, cents[:, None, :].expand(3, c_count, ca)],
+                            dim=2)
+        col_w = torch.cat([nb_w, far_w], dim=1)
+        col_id = torch.cat([nbm, torch.full((c_count, ca), -1,
+                                            dtype=nbm.dtype)], dim=1)
+    cols = col_w.shape[1]
+    slice_cols = -(-cols // min(slices, cols))
+    total = torch.zeros((), dtype=cs.dtype)
+    for lo in range(0, cols, slice_cols):
+        sl = slice(lo, min(lo + slice_cols, cols))
+        d2 = sum((cs[x][:, :, None] - col_xyz[x][:, None, sl]) ** 2
+                 for x in range(3))
+        extra = (mi[:, :, None] == col_id[:, None, sl]).to(cs.dtype) * 100.0
+        total = total + torch.sum(
+            (w[:, :, None] * col_w[:, None, sl])
+            / (torch.sqrt(torch.clamp(d2, min=1e-6)) + extra + 1e-6))
+    return total
