@@ -69,6 +69,11 @@ __device__ __forceinline__ float expanded_q(float px, float py, float pz,
 #define MARCH_T_MAX 1e4f
 // |c|^2 at or above this marks a masked slot (the wrappers write 1e30).
 #define MARCH_MASKED_CSQ 1e29f
+// Early exit (K1's option): a ray is live while its last step was longer
+// than MARCH_CONV_TOL and it has not passed MARCH_MISS_T, beyond which no
+// ray can still hit a scene inside |c| <= 1.2 + r.
+#define MARCH_CONV_TOL 1e-5f
+#define MARCH_MISS_T 40.0f
 
 __device__ __forceinline__ float pair_sqrt(float q) {
   float r;
@@ -317,7 +322,15 @@ __device__ __forceinline__ void softmin_points(const MarchTable& tab, int g,
 // central-difference normals with +1e-6 inside the sqrt. ``ray[i]`` indexes
 // ro/rd/t0/t_out/n_out; rays with ``store[i]`` false are marched (block
 // barriers stay uniform) and not written. Lane ``g`` == 0 writes.
-template <int L, int R, bool FOLD>
+//
+// EXIT ends the iterations early: after each step the rays vote, and when no
+// stored ray of the voting set is live the march goes straight to the
+// reattach evaluation. The voting set is the warp (__any_sync) while the
+// table is resident, and the block (__syncthreads_or) when it is staged
+// chunk by chunk, because every thread of the block then has to make the
+// same soft-min calls. No ray is frozen: a converged ray keeps stepping
+// while another ray of its set is live, each such step under MARCH_CONV_TOL.
+template <int L, int R, bool FOLD, bool EXIT = false>
 __device__ __forceinline__ void march_rays(
     const MarchTable& tab, int g, const float* __restrict__ ro,
     const float* __restrict__ rd, const float* __restrict__ t0,
@@ -343,6 +356,16 @@ __device__ __forceinline__ void march_rays(
     if (it < num_steps) {
 #pragma unroll
       for (int i = 0; i < R; ++i) t[i] = fminf(t[i] + sm[i], MARCH_T_MAX);
+      if (EXIT) {
+        bool live = false;
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+          live |= store[i] && fabsf(sm[i]) > MARCH_CONV_TOL &&
+                  t[i] < MARCH_MISS_T;
+        const bool any = tab.resident ? __any_sync(FULL_MASK, live) != 0
+                                      : __syncthreads_or(live) != 0;
+        if (!any) it = num_steps - 1;  // the next pass is the reattach one
+      }
     }
   }
   // Detached reattach point -> p_final, kept in (ox, oy, oz).

@@ -27,7 +27,10 @@
 // (d) the [M, 5] table is staged once per block as float4 + float when its
 //     live columns fit MS_CHUNK, and chunk by chunk otherwise, so there is
 //     no M cap: the TPU kernel's M <= 32768 cap was a VMEM limit.
-// The per-tile early exit of the TPU kernel is not implemented.
+// (e) the TPU kernel's optional early exit (its while_loop over a 1,024-ray
+//     tile) is the EXIT template flag of the march core: the voting set is
+//     the warp, or the block for a chunked table. Converged rays stop up to
+//     num_steps * 1e-5 short of where the fixed-count march leaves them.
 #include "common.cuh"
 
 #define MS_WARPS 8
@@ -39,7 +42,7 @@
 #define MS_COLUMNS_PER_LANE 16
 #define MS_TARGET_WARPS 1024
 
-template <int L>
+template <int L, bool EXIT>
 __global__ void __launch_bounds__(MS_WARPS * 32)
 march_shade_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
                    const float* __restrict__ t0,
@@ -73,8 +76,8 @@ march_shade_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
     store[i] = r < n;
     ray[i] = (size_t)(r < n ? r : n - 1);
   }
-  march_rays<L, MS_RAYS, true>(tab, lane % L, ro, rd, t0, ray, store, k,
-                               num_steps, normal_eps, t_out, n_out);
+  march_rays<L, MS_RAYS, true, EXIT>(tab, lane % L, ro, rd, t0, ray, store, k,
+                                     num_steps, normal_eps, t_out, n_out);
 }
 
 // Lanes per ray, a power of two: enough that a lane walks about
@@ -95,32 +98,37 @@ static int pick_lanes(int n, int m) {
   return lanes;
 }
 
-template <int L>
+template <int L, bool EXIT>
 static int launch_lanes(const float* ro, const float* rd, const float* t0,
                         const float* prim, int n, int m, float k,
                         int num_steps, float normal_eps, float* t_out,
                         float* n_out, cudaStream_t stream) {
   const long long per_block = (long long)MS_WARPS * (32 / L) * MS_RAYS;
   const dim3 grid((unsigned)((n + per_block - 1) / per_block));
-  march_shade_kernel<L><<<grid, MS_WARPS * 32, 0, stream>>>(
+  march_shade_kernel<L, EXIT><<<grid, MS_WARPS * 32, 0, stream>>>(
       ro, rd, t0, prim, n, m, k, num_steps, normal_eps, t_out, n_out);
   return (int)cudaGetLastError();
 }
 
 // ro, rd [n,3]; t0 [n] or null; prim [m,5] rows (cx, cy, cz, |c|^2, r*k) with
 // 1e30 in the |c|^2 of masked slots (march_pack_launch writes it). Writes
-// t_out [n], n_out [n,3]. Returns a CUDA error code.
+// t_out [n], n_out [n,3]. ``early_exit`` != 0 picks the EXIT instantiation.
+// Returns a CUDA error code.
 extern "C" int march_shade_launch(const float* ro, const float* rd,
                                   const float* t0, const float* prim, int n,
                                   int m, float k, int num_steps,
-                                  float normal_eps, float* t_out, float* n_out,
-                                  void* stream) {
+                                  float normal_eps, int early_exit,
+                                  float* t_out, float* n_out, void* stream) {
   if (n < 1 || m < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-#define MS_CASE(L)                                                         \
-  case L:                                                                  \
-    return launch_lanes<L>(ro, rd, t0, prim, n, m, k, num_steps, normal_eps, \
-                           t_out, n_out, s)
+#define MS_CASE(L)                                                          \
+  case L:                                                                   \
+    return early_exit                                                       \
+               ? launch_lanes<L, true>(ro, rd, t0, prim, n, m, k, num_steps, \
+                                       normal_eps, t_out, n_out, s)         \
+               : launch_lanes<L, false>(ro, rd, t0, prim, n, m, k,          \
+                                        num_steps, normal_eps, t_out, n_out, \
+                                        s)
   switch (pick_lanes(n, m)) {
     MS_CASE(1);
     MS_CASE(2);

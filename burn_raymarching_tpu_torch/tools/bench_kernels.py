@@ -22,7 +22,8 @@ imbalance between tiles); K2 (``shade_fused``) at 100 live of 128 slots and
 way. Per case one JSON line: ``ms`` (the wrapper call between CUDA events),
 ``device_ms`` (the same call replayed from a CUDA graph) and the errors
 against the plain float32 version (K1, K3: also both versions' gaps to the
-same march in float64, chip_smoke.float64_gaps). For K2 and K4
+same march in float64, chip_smoke.float64_gaps; K1: also a digest of the
+output's bits, equal between two trees whose kernels agree bitwise). For K2 and K4
 ``bwd_device_ms`` is forward + backward less the forward. ``--only`` picks
 kernels, ``--out`` appends the lines to a file as well. The first line is
 the launch of an empty kernel timed the same way, where the tree has one.
@@ -31,6 +32,7 @@ the launch of an empty kernel timed the same way, where the tree has one.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import os
@@ -192,6 +194,12 @@ def run_k1(torch, cs, dev, tag) -> list[dict]:
         mask = torch.arange(slots, device=dev) < live
         res, _ = measure(torch, cs, k1.march_shade, k1.march_shade_plain,
                          (ro, rd, c, r, K1_K), dict(mask=mask))
+        # A digest of the kernel's output bits: two trees whose digests
+        # agree compute bitwise the same t and normals.
+        t_k, n_k = k1.march_shade(ro, rd, c, r, K1_K, mask=mask)
+        res["output_sha256"] = hashlib.sha256(
+            t_k.cpu().numpy().tobytes()
+            + n_k.cpu().numpy().tobytes()).hexdigest()[:16]
         rows.append({"kernel": "K1", "case": f"cold M={slots} live={live}",
                      **res, **tag})
     return rows

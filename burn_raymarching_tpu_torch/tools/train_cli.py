@@ -1,9 +1,9 @@
-"""Training CLI (port of burn_raymarching_tpu/tools/train_cli.py, single-run
-path).
+"""Training CLI (port of burn_raymarching_tpu/tools/train_cli.py).
 
-Takes the JAX CLI's flags and builds the same ``TrainConfig``. Flags for
-features outside the ported slice raise ``NotImplementedError``.
-``--device`` defaults to cuda; asking for CUDA without a card raises.
+Takes the JAX CLI's flags and builds the same ``TrainConfig``: one run with
+optional ``--polish`` and ``--refine`` rounds after it, or ``--best-of N``
+seeds with the rounds on the winner. ``--device`` defaults to cuda; asking
+for CUDA without a card raises.
 
 Usage:
   python -m burn_raymarching_tpu_torch.tools.train_cli [--cameras data/cameras.json]
@@ -81,7 +81,9 @@ def build_config(args):
         render_kw["coverage_mode"] = args.coverage
     if args.mask_px:
         if args.pixel_angle <= 0.0:
-            raise SystemExit("--mask-px needs --pixel-angle")
+            raise SystemExit(
+                "--mask-px needs --pixel-angle (2*tan(fov/2)/height); "
+                "without it the adaptive mask is a silent no-op")
         render_kw.update(mask_pixel_mult=args.mask_px,
                          pixel_angle=args.pixel_angle)
     if args.ss_stages or args.mask_px_stages:
@@ -164,12 +166,14 @@ def make_parser() -> argparse.ArgumentParser:
     add("--cluster-repulsion", dest="cluster_repulsion", action="store_true")
     add("--rep-far-field", dest="rep_far_field", default="",
         choices=["", "member", "monopole"])
-    # Flags of the JAX CLI whose features are not ported: accepted so the
-    # command lines match, rejected with NotImplementedError when used.
-    add("--stage-guard", dest="stage_guard", action="store_true")
+    add("--stage-guard", dest="stage_guard", action="store_true",
+        help="in-run collapse guard: re-run a stage (fresh density-control "
+             "roll and restart key) when it fails to improve train-view "
+             "PSNR")
     add("--stage-guard-retries", dest="stage_guard_retries", type=int,
         default=2)
-    add("--best-of", dest="best_of", type=int, default=1)
+    add("--best-of", dest="best_of", type=int, default=1, metavar="N",
+        help="train N seeds and export the best by train-view PSNR")
     add("--coverage-stages", dest="coverage_stages", default="")
     add("--mask-sharp-stages", dest="mask_sharp_stages", default="")
     add("--ss-stages", dest="ss_stages", default="")
@@ -180,8 +184,12 @@ def make_parser() -> argparse.ArgumentParser:
         choices=["", "reference", "residual"])
     add("--split-budget", dest="split_budget", type=int, default=0)
     add("--lr-centers-stages", dest="lr_centers_stages", default="")
-    add("--polish", type=int, default=0)
-    add("--refine", type=int, default=0)
+    add("--polish", type=int, default=0, metavar="R",
+        help="R extra last-stage rounds on the final primitive set, each "
+             "kept only if train-view PSNR improves")
+    add("--refine", type=int, default=0, metavar="R",
+        help="after polish, R PSNR-gated rounds of derivative-free "
+             "geometry refinement (needs --cull)")
     add("--refine-proposals", dest="refine_proposals", type=int, default=768)
     add("--refine-frac", dest="refine_frac", type=float, default=0.05)
     add("--refine-bias", dest="refine_bias", default="uniform",
@@ -193,14 +201,22 @@ def make_parser() -> argparse.ArgumentParser:
     return p
 
 
+def refine_kwargs(args) -> dict:
+    """Trainer.refine_geometry arguments from the --refine-* flags."""
+    return dict(proposals=args.refine_proposals, frac=args.refine_frac,
+                proposal_bias=args.refine_bias, sigma_col=args.refine_colors,
+                accept_temp=args.refine_temp,
+                fringe_weight=args.refine_fringe,
+                light_proposals=args.refine_light)
+
+
 def main(argv=None):
-    """Train one run → (trainer, final padded params, mask)."""
+    """Train → (trainer, final padded params, mask); with ``--best-of`` the
+    winning seed's."""
+    import dataclasses
+
     args = make_parser().parse_args(argv)
-    for flag, used in (("--best-of", args.best_of > 1),
-                       ("--polish", args.polish), ("--refine", args.refine)):
-        if used:
-            raise NotImplementedError(f"{flag} is not ported to "
-                                      "burn_raymarching_tpu_torch")
+    from burn_raymarching_tpu_torch.data.scene_io import export_scene_json
     from burn_raymarching_tpu_torch.tools.generate import resolve_device
     from burn_raymarching_tpu_torch.train.loop import Trainer, build_dataset
 
@@ -210,8 +226,48 @@ def main(argv=None):
     print(f"Total training pixels: {dataset.num_total_pixels}")
     print(f"Foreground pixels: {dataset.num_fg}, "
           f"Background pixels: {dataset.num_bg}")
-    trainer = Trainer(cfg, dataset)
-    padded, mask = trainer.run(resume=args.resume)
+
+    if args.best_of <= 1:
+        trainer = Trainer(cfg, dataset)
+        padded, mask = trainer.run(resume=args.resume)
+        if args.polish:
+            padded, mask = trainer.polish(padded, mask, rounds=args.polish)
+        if args.refine:
+            padded, mask = trainer.refine_geometry(
+                padded, mask, rounds=args.refine, **refine_kwargs(args))
+        return trainer, padded, mask
+
+    # Best-of-N: the density-control trajectory is stochastic; train N
+    # seeds and keep the best by PSNR against the training views.
+    best = None
+    cams = tgts = None
+    for s in range(args.best_of):
+        run_cfg = dataclasses.replace(
+            cfg, seed=cfg.seed + s, scene_json=f"{cfg.scene_json}.seed{s}",
+            steps_dir=f"{cfg.steps_dir}_seed{s}", checkpoint_dir=None)
+        print(f"--- best-of run {s + 1}/{args.best_of} "
+              f"(seed {run_cfg.seed}) ---")
+        trainer = Trainer(run_cfg, dataset)
+        padded, mask = trainer.run()
+        if cams is None:
+            cams, tgts = trainer._load_views()
+        psnr = trainer.views_psnr(padded, mask, cams, tgts)
+        print(f"    seed {run_cfg.seed}: PSNR mean {psnr:.2f}")
+        if best is None or psnr > best[0]:
+            best = (psnr, padded, mask, run_cfg.seed, trainer)
+    psnr, padded, mask, seed, trainer = best
+    if args.polish:
+        padded, mask = trainer.polish(padded, mask, rounds=args.polish,
+                                      export=False, cameras=cams,
+                                      targets=tgts)
+        psnr = trainer.views_psnr(padded, mask, cams, tgts)
+        print(f"    polished: PSNR mean {psnr:.2f}")
+    if args.refine:
+        padded, mask = trainer.refine_geometry(
+            padded, mask, rounds=args.refine, export=False, cameras=cams,
+            targets=tgts, **refine_kwargs(args))
+    export_scene_json(padded, cfg.scene_json, mask=mask.cpu().numpy())
+    print(f"Best seed {seed}: PSNR {psnr:.2f} → {cfg.scene_json}")
     return trainer, padded, mask
 
 

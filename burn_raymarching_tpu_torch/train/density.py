@@ -1,10 +1,10 @@
 """Adaptive density control: generation-boundary pruning and splitting
-(port of burn_raymarching_tpu/train/density.py, reference split mode).
+(port of burn_raymarching_tpu/train/density.py).
 
 Host-side NumPy, copied from the JAX package with the same
 ``np.random.default_rng`` draws, so results are bit-identical; the result
 is re-padded to a bucket size before re-entering the training step. The
-residual split mode is not ported.
+residual split mode takes its scores from train/residual.py.
 
 Rules (reference lines cited):
   PRUNE  — r > 1 - 0.04*stage or r < 0.005 (training.rs:167)
@@ -56,6 +56,7 @@ def merge_redundant(
     raw_colors: np.ndarray,    # [M, 3] logits
     raw_radii: np.ndarray,     # [M, 1] raw
     cell: float,
+    scores: np.ndarray | None = None,
 ):
     """Merge primitives sharing a quantized grid cell of size ``cell``.
 
@@ -71,10 +72,17 @@ def merge_redundant(
       radius — the LARGEST member's (the stack's represented surface;
                training re-adjusts from there).
 
-    Returns (centers, colors, radii, n_merged_away).
+    With ``scores`` (residual attribution, train/residual.py) the merged
+    cell's score is the member SUM — the stack's error mass stays intact
+    for the split stage that follows — and a 5-tuple
+    (centers, colors, radii, n_merged_away, scores) is returned.
+
+    Returns (centers, colors, radii, n_merged_away[, scores]).
     """
     c = np.asarray(raw_centers, np.float32).reshape(-1, 3)
     if cell <= 0.0 or c.shape[0] == 0:
+        if scores is not None:
+            return raw_centers, raw_colors, raw_radii, 0, scores
         return raw_centers, raw_colors, raw_radii, 0
     q = np.floor(c / cell).astype(np.int64)
     # Collapse 3D cell coords to one key; 2^20 per axis is plenty.
@@ -92,6 +100,10 @@ def merge_redundant(
     # physical radius.
     radii = np.full(k, -np.inf, np.float32)
     np.maximum.at(radii, inv, np.asarray(raw_radii, np.float32).reshape(-1))
+    if scores is not None:
+        s_out = np.zeros(k, np.float32)
+        np.add.at(s_out, inv, np.asarray(scores, np.float32).reshape(-1))
+        return centers, colors, radii[:, None], int(c.shape[0] - k), s_out
     return centers, colors, radii[:, None], int(c.shape[0] - k)
 
 
@@ -128,15 +140,18 @@ def prune_and_split(
     stages: int,
     rng: np.random.Generator,
     cfg: DensityConfig = DensityConfig(),
+    split_scores: np.ndarray | None = None,
 ):
     """Returns (centers [M',3], colors [M',3], radii [M',1], stats).
 
     All arrays are raw (pre-activation) params for the next generation.
+
+    ``split_scores`` ([M] residual attribution, train/residual.py) drives
+    the scale-aware ``cfg.split_mode == "residual"`` rule: the reference's
+    prune rules run unchanged, then the overlap merge (scores summed per
+    cell), then the top-``split_budget`` scorers split — merge-before-split
+    so fresh children survive the boundary they were born at.
     """
-    if cfg.split_mode != "reference":
-        raise NotImplementedError(
-            f"DensityConfig.split_mode={cfg.split_mode!r} (--split-mode) is "
-            "not ported; only 'reference'")
     raw_centers = np.asarray(raw_centers, np.float32).reshape(-1, 3)
     raw_colors = np.asarray(raw_colors, np.float32).reshape(-1, 3)
     raw_radii = np.asarray(raw_radii, np.float32).reshape(-1, 1)
@@ -157,6 +172,16 @@ def prune_and_split(
     pruned_flyaway = int((~bad_size & flyaway).sum())
     pruned_black = int((~bad_size & ~flyaway & black).sum())
     keep = ~(bad_size | flyaway | black)
+
+    if cfg.split_mode == "residual":
+        if split_scores is None:
+            raise ValueError('split_mode="residual" needs split_scores '
+                             '(train/residual.primitive_residual_scores)')
+        return _prune_merge_split_residual(
+            raw_centers, raw_colors, raw_radii,
+            np.asarray(split_scores, np.float32).reshape(-1), keep,
+            pruned_size, pruned_flyaway, pruned_black,
+            stage, stages, rng, cfg)
 
     # --- Splitting (training.rs:183-233) ---
     if stage < stages - 1:
@@ -202,3 +227,63 @@ def prune_and_split(
         merged=merged,
     )
     return centers, colors, radii, stats
+
+
+def _prune_merge_split_residual(raw_centers, raw_colors, raw_radii,
+                                scores, keep, pruned_size, pruned_flyaway,
+                                pruned_black, stage, stages, rng,
+                                cfg: DensityConfig):
+    """Scale-aware boundary rules: prune (reference) → overlap merge →
+    split the highest-residual primitives.
+
+    The merge runs BEFORE the split (unlike the committed reference-mode
+    order): children are placed at ± r/2 of small-radius parents, i.e.
+    usually inside one merge cell, so the split-then-merge order would
+    collapse fresh children right back — growth could never happen. Scores
+    are summed through the merge, keeping each stack's error mass intact.
+    """
+    centers = raw_centers[keep]
+    colors = raw_colors[keep]
+    radii = raw_radii[keep]
+    scores = scores[keep]
+
+    merged = 0
+    if cfg.merge_cell > 0.0:
+        centers, colors, radii, merged, scores = merge_redundant(
+            centers, colors, radii, cfg.merge_cell, scores=scores)
+
+    n_split = 0
+    n_hold = int(centers.shape[0])
+    if stage < stages - 1 and centers.shape[0] > 0:
+        budget = (cfg.split_budget if cfg.split_budget > 0
+                  else int(cfg.split_frac * centers.shape[0]))
+        order = np.argsort(-scores)[:budget]
+        sel = np.zeros(centers.shape[0], bool)
+        sel[order[scores[order] > 0.0]] = True
+        n_split = int(sel.sum())
+        hold = ~sel
+        n_hold = int(hold.sum())
+        out_centers = [centers[hold]]
+        out_colors = [colors[hold]]
+        out_radii = [radii[hold]]
+        if n_split:
+            cc, col2, rr = _split_children(
+                centers[sel], colors[sel],
+                _softplus(radii[sel][:, 0]), rng, cfg)
+            out_centers.append(cc)
+            out_colors.append(col2)
+            out_radii.append(rr)
+        centers = np.concatenate(out_centers)
+        colors = np.concatenate(out_colors)
+        radii = np.concatenate(out_radii)
+
+    stats = DensityStats(
+        pruned_size=pruned_size,
+        pruned_flyaway=pruned_flyaway,
+        pruned_black=pruned_black,
+        split=n_split,
+        kept=n_hold,
+        merged=merged,
+    )
+    return (centers.astype(np.float32), colors.astype(np.float32),
+            radii.astype(np.float32), stats)

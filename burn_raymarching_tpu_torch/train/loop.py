@@ -17,12 +17,21 @@ tables (train/loss.RepulsionStatic) once per scan chunk of 100 steps; this
 loop rebuilds them every 100 steps, before steps 1, 101, 201 and so on of
 each stage. The loss is read back to the host only at the 100-step log
 cadence. The kernels are used when ``use_pallas`` is set and the dataset
-lives on a CUDA device. Features outside the ported slices raise
-``NotImplementedError`` naming their config field.
+lives on a CUDA device.
+
+Around that loop stands the quality recipe: per-stage render schedules
+(coverage family, mask sharpness, supersample factor, pixel-area mask) with
+one step closure per distinct override set, ``polish`` (extra last-stage
+rounds, kept only when train-view PSNR improves), ``refine_geometry``
+(derivative-free rounds of train/refine.py under the same gate), the
+stage guard (``_run_guarded``: a stage or a density-control boundary that
+costs PSNR is re-rolled) and residual-attribution splitting
+(train/residual.py).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import time
@@ -68,7 +77,16 @@ from burn_raymarching_tpu_torch.ops.culling import (
 from burn_raymarching_tpu_torch.render.culled import culled_march_normals_xla
 from burn_raymarching_tpu_torch.render.preview import CullRender, render_tiled
 from burn_raymarching_tpu_torch.train.density import prune_and_split
+from burn_raymarching_tpu_torch.train.evaluate import evaluate_views
 from burn_raymarching_tpu_torch.train.loss import build_repulsion_static
+from burn_raymarching_tpu_torch.train.refine import (
+    geometry_refine,
+    light_refine,
+    sample_fg_tile_batches,
+)
+from burn_raymarching_tpu_torch.train.residual import (
+    primitive_residual_scores,
+)
 from burn_raymarching_tpu_torch.train.optimizer import (
     anneal_for_step,
     make_optimizer,
@@ -88,28 +106,6 @@ from burn_raymarching_tpu_torch.utils import (
 # Steps between rebuilds of the repulsion's frozen tables (the JAX
 # package's default scan chunk).
 REP_STATIC_REFRESH = 100
-
-
-def unported_features(cfg: TrainConfig) -> list[str]:
-    """Config fields (and their CLI flags) set to something this port does
-    not implement."""
-    rc = cfg.render
-    checks = [
-        (cfg.stage_guard, "stage_guard (--stage-guard)"),
-        (rc.supersample > 1, "render.supersample > 1"),
-        (rc.mask_pixel_mult > 0.0, "render.mask_pixel_mult (--mask-px)"),
-        (bool(cfg.coverage_mode_stages),
-         "coverage_mode_stages (--coverage-stages)"),
-        (bool(cfg.mask_sharpness_stages),
-         "mask_sharpness_stages (--mask-sharp-stages)"),
-        (bool(cfg.supersample_stages), "supersample_stages (--ss-stages)"),
-        (bool(cfg.mask_px_stages), "mask_px_stages (--mask-px-stages)"),
-        (bool(cfg.lr_scale_centers_stages),
-         "lr_scale_centers_stages (--lr-centers-stages)"),
-        (cfg.density.split_mode != "reference",
-         "density.split_mode (--split-mode residual)"),
-    ]
-    return [name for bad, name in checks if bad]
 
 
 def build_dataset(cfg: TrainConfig, device: torch.device | str = "cpu"
@@ -144,6 +140,13 @@ def split_key(key: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return k[0], k[1]
 
 
+def fold_key(key: np.ndarray, data: int) -> np.ndarray:
+    """Deterministic derived key: (key [2] uint32, int) → key [2] uint32."""
+    return np.random.default_rng([int(x) for x in key] + [int(data)]
+                                 ).integers(0, 2 ** 32, size=2,
+                                            dtype=np.uint32)
+
+
 def generator_from_key(key: np.ndarray, device: torch.device
                        ) -> torch.Generator:
     gen = torch.Generator(device=device)
@@ -154,10 +157,49 @@ def generator_from_key(key: np.ndarray, device: torch.device
 class Trainer:
     def __init__(self, cfg: TrainConfig, dataset: RayDataset,
                  log: Callable[[str], None] = print):
-        bad = unported_features(cfg)
-        if bad:
-            raise NotImplementedError(
-                "not ported to burn_raymarching_tpu_torch: " + ", ".join(bad))
+        # Fail at construction, not after a trained stage.
+        if cfg.density.split_mode == "residual" and not cfg.use_culling:
+            raise ValueError('split_mode="residual" requires use_culling '
+                             '(it exists for the compact-cloud configs)')
+        if (cfg.coverage_mode_stages
+                and cfg.coverage_mode_stages[-1] != cfg.render.coverage_mode):
+            raise ValueError(
+                f"coverage_mode_stages ends with "
+                f"{cfg.coverage_mode_stages[-1]!r} but render.coverage_mode "
+                f"(used by eval/preview/polish/export) is "
+                f"{cfg.render.coverage_mode!r} — they must agree or the "
+                f"reported PSNR measures a different forward than the one "
+                f"trained")
+        if (cfg.mask_sharpness_stages
+                and float(cfg.mask_sharpness_stages[-1])
+                != cfg.render.mask_sharpness):
+            raise ValueError(
+                f"mask_sharpness_stages ends with "
+                f"{cfg.mask_sharpness_stages[-1]} but render.mask_sharpness "
+                f"(used by eval/preview/polish/export) is "
+                f"{cfg.render.mask_sharpness} — they must agree")
+        if (cfg.supersample_stages
+                and int(cfg.supersample_stages[-1]) != cfg.render.supersample):
+            raise ValueError(
+                f"supersample_stages ends with {cfg.supersample_stages[-1]} "
+                f"but render.supersample is {cfg.render.supersample} — the "
+                f"schedule must end at the forward the point-sampled "
+                f"evaluator measures")
+        if (cfg.mask_px_stages
+                and float(cfg.mask_px_stages[-1])
+                != cfg.render.mask_pixel_mult):
+            raise ValueError(
+                f"mask_px_stages ends with {cfg.mask_px_stages[-1]} but "
+                f"render.mask_pixel_mult is {cfg.render.mask_pixel_mult} — "
+                f"they must agree")
+        needs_px = (cfg.render.supersample > 1
+                    or any(int(v) > 1 for v in cfg.supersample_stages)
+                    or any(float(m) > 0 for m in cfg.mask_px_stages))
+        if needs_px and cfg.render.pixel_angle <= 0.0:
+            raise ValueError(
+                "supersample/mask_px stages need render.pixel_angle "
+                "(2*tan(fov/2)/height) — without it the pixel footprint "
+                "is undefined")
         self.cfg = cfg
         self.dataset = dataset
         self.device = dataset.device
@@ -184,11 +226,20 @@ class Trainer:
         else:
             self._sample_fg = (dataset.fg_indices, dataset.num_fg)
         self.lr_scales = lr_scale_tree(cfg)
-        self.step_fn = make_device_step(
-            cfg, march_normal_fn=self.march_normal_fn, batch=cfg.batch_size,
-            culled_march_fn=self.culled_march_normal_fn,
-            repulsion_fn=self.repulsion_fn, warm=self.warm)
+        self.step_fn = self._build_step()
+        # One step closure per distinct per-stage render override set
+        # (coverage_mode_stages, mask_sharpness_stages, supersample_stages,
+        # mask_px_stages), built at first use.
+        self._step_fns: dict = {}
         self.loss_history: list[float] = []
+        # Stage-guard telemetry: how often the in-run guard fired.
+        self.guard_retry_count = 0
+        self.guard_boundary_redo_count = 0
+        self._guard_eval = None
+        # What the gated rounds, the density boundaries and the guard
+        # decided, in order: one dict per event, keyed by "kind" ("polish",
+        # "refine", "density", "guard"). Callers read this, not the log.
+        self.events: list[dict] = []
         self.metrics = MetricsLogger(cfg.metrics_jsonl)
         self.t_cache = None
         if self.warm:
@@ -202,6 +253,58 @@ class Trainer:
         if not self.cfg.warm_start:
             return False
         return self.cfg.use_culling or self.march_normal_fn is not None
+
+    def _coverage_for_stage(self, stage: int) -> str:
+        sched = self.cfg.coverage_mode_stages
+        if not sched:
+            return self.cfg.render.coverage_mode
+        return sched[min(stage, len(sched) - 1)]
+
+    def _render_overrides_for_stage(self, stage: int) -> dict:
+        """Per-stage RenderConfig overrides (coverage family, mask
+        sharpness, supersample and pixel-area mask schedules), {} when no
+        schedule is set. Each schedule clamps to its last entry."""
+        cfg = self.cfg
+        out = {}
+        if cfg.coverage_mode_stages:
+            out["coverage_mode"] = self._coverage_for_stage(stage)
+        for name, sched, cast in (
+                ("mask_sharpness", cfg.mask_sharpness_stages, float),
+                ("supersample", cfg.supersample_stages, int),
+                ("mask_pixel_mult", cfg.mask_px_stages, float)):
+            if sched:
+                out[name] = cast(sched[min(stage, len(sched) - 1)])
+        return out
+
+    def _stage_cfg(self, render_overrides: Optional[dict]) -> TrainConfig:
+        """cfg with per-stage render fields overridden."""
+        if not render_overrides:
+            return self.cfg
+        return dataclasses.replace(
+            self.cfg,
+            render=dataclasses.replace(self.cfg.render, **render_overrides))
+
+    def _build_step(self, render_overrides: Optional[dict] = None):
+        cfg = self._stage_cfg(render_overrides)
+        return make_device_step(
+            cfg, march_normal_fn=self.march_normal_fn, batch=cfg.batch_size,
+            culled_march_fn=self.culled_march_normal_fn,
+            repulsion_fn=self.repulsion_fn, warm=self.warm)
+
+    def _step_for_stage(self, stage: int):
+        """The stage's step closure. Without schedules, and for stages whose
+        overrides equal the base render config, this is ``self.step_fn``,
+        so callers that replace it keep working."""
+        base = self.cfg.render
+        over = {k: v for k, v in
+                self._render_overrides_for_stage(stage).items()
+                if getattr(base, k) != v}
+        if not over:
+            return self.step_fn
+        key = tuple(sorted(over.items()))
+        if key not in self._step_fns:
+            self._step_fns[key] = self._build_step(over)
+        return self._step_fns[key]
 
     def _build_cluster_table(self, padded: SceneParams, mask: torch.Tensor
                              ) -> Optional[PrimitiveClusters]:
@@ -235,11 +338,14 @@ class Trainer:
 
     def run_stage(self, params: SceneParams, stage: int,
                   generator: torch.Generator, num_steps: Optional[int] = None,
-                  idx_fn: Optional[Callable[[int], torch.Tensor]] = None
+                  idx_fn: Optional[Callable[[int], torch.Tensor]] = None,
+                  step_offset: int = 0
                   ) -> tuple[SceneParams, torch.Tensor, torch.Tensor]:
         """One generation of optimization → (padded params, mask, last loss).
 
         ``idx_fn(step)`` injects fixed batch indices (tests).
+        ``step_offset`` shifts the in-stage step counter: polish() uses it
+        to pin the anneals past the schedule end.
         """
         cfg = self.cfg
         padded, mask = pad_params(params, bucket_size(params.n))
@@ -249,11 +355,14 @@ class Trainer:
         loss = torch.zeros(())
         n_live = params.n
         if self.warm:
-            self.prefill_t_cache(padded, mask,
-                                 anneal_for_step(cfg, stage, 1)[1])
+            self.prefill_t_cache(
+                padded, mask,
+                anneal_for_step(cfg, stage, 1 + step_offset)[1])
         clusters = self._build_cluster_table(padded, mask)
         rep_static = None
         fg_pool, n_fg_pool = self._sample_fg
+        step_fn = self._step_for_stage(stage)
+        lr_scales = lr_scale_tree(cfg, stage)
         t0 = time.perf_counter()
         for step in range(1, steps + 1):
             idx = idx_fn(step) if idx_fn is not None else None
@@ -261,23 +370,189 @@ class Trainer:
                     and (step - 1) % REP_STATIC_REFRESH == 0):
                 rep_static = build_repulsion_static(padded.centers, clusters,
                                                     mask)
-            loss, lr = self.step_fn(padded, generator, stage, step, mask,
-                                     ds.packed, fg_pool, n_fg_pool,
-                                     idx=idx, t_cache=self.t_cache,
-                                     clusters=clusters, rep_static=rep_static)
-            set_group_lrs(opt, lr, self.lr_scales)
+            loss, lr = step_fn(padded, generator, stage, step + step_offset,
+                               mask, ds.packed, fg_pool, n_fg_pool,
+                               idx=idx, t_cache=self.t_cache,
+                               clusters=clusters, rep_static=rep_static)
+            set_group_lrs(opt, lr, lr_scales)
             opt.step()
             if step % 100 == 0 or step == steps:
                 lv = float(loss)   # the only host read of the loop
                 rate = step * cfg.batch_size / (time.perf_counter() - t0)
                 self.loss_history.append(lv)
-                _, smooth_k, _ = anneal_for_step(cfg, stage, step)
+                _, smooth_k, _ = anneal_for_step(cfg, stage,
+                                                 step + step_offset)
                 self.log(f"  Step {step} | Loss: {lv:.5f} | k: {smooth_k:.1f}"
                          f" | {rate:,.0f} rays/s")
                 self.metrics.log(stage=stage, step=step, loss=lv,
                                  smooth_k=round(smooth_k, 2),
                                  n_primitives=n_live, rays_per_s=round(rate))
         return padded, mask, loss
+
+    def _load_views(self, cameras=None, targets=None):
+        """(cameras, per-view linear targets) of the training views."""
+        if cameras is None:
+            cameras = load_cameras(self.cfg.cameras_json)
+            targets = [load_image_as_array(c["file"]) for c in cameras]
+        return cameras, targets
+
+    def views_psnr(self, padded: SceneParams, mask: torch.Tensor,
+                   cameras=None, targets=None, chunk: int = 4096,
+                   dense: bool = False) -> float:
+        """Mean PSNR over ``cameras`` (default: the training views) under
+        the FINAL render config, culled like the training step (``dense``
+        renders without culling, through K1): what polish, refine, the
+        stage guard and best-of compare."""
+        cfg = self.cfg
+        cameras, targets = self._load_views(cameras, targets)
+        rc = cfg.render
+        return evaluate_views(
+            padded, cameras, targets, cfg.width, cfg.height, mask=mask,
+            smooth_k=cfg.max_smooth_k, chunk=chunk,
+            march_normal_fn=self.march_normal_fn,
+            softmax_sharpness=rc.softmax_sharpness,
+            mask_sharpness=rc.mask_sharpness,
+            cull=None if dense else self._cull_render(),
+            mask_pixel_mult=rc.mask_pixel_mult, pixel_angle=rc.pixel_angle,
+            coverage_mode=rc.coverage_mode)["mean"]
+
+    def polish(self, padded: SceneParams, mask: torch.Tensor,
+               rounds: int = 2, key: Optional[np.ndarray] = None,
+               export: bool = True, cameras: Optional[list] = None,
+               targets: Optional[list] = None
+               ) -> tuple[SceneParams, torch.Tensor]:
+        """Post-final refinement: extra last-stage optimization rounds on
+        the final primitive set, no density control, GREEDY by PSNR.
+
+        Each round re-runs ``run_stage`` with the anneals PINNED at their
+        final values (smooth_k = max, uniform_ratio = end, post-drop LR, via
+        a step offset past the schedule end) and a fresh Adam. A round is
+        kept only if it improves mean PSNR on the training views, so polish
+        never regresses. Re-exports scene.json and a ``final_polished.png``
+        preview when ``export``."""
+        cfg = self.cfg
+        if key is None:
+            key = fold_key(np.asarray([0, cfg.seed], np.uint32), 0x90115)
+        cameras, targets = self._load_views(cameras, targets)
+        best_psnr = self.views_psnr(padded, mask, cameras, targets)
+        self.log(f"Polish baseline: PSNR {best_psnr:.2f}")
+        n = int(mask.sum().item())
+        for r in range(rounds):
+            key, sub = split_key(key)
+            cand, cand_mask, _ = self.run_stage(
+                unpad_params(padded, n), cfg.stages - 1,
+                generator_from_key(sub, self.device),
+                step_offset=cfg.steps_per_stage)
+            cand_psnr = self.views_psnr(cand, cand_mask, cameras, targets)
+            kept = cand_psnr > best_psnr
+            self.events.append(dict(kind="polish", round=r + 1,
+                                    baseline=float(best_psnr),
+                                    psnr=float(cand_psnr), kept=bool(kept)))
+            self.log(f"=== Polish round {r + 1}/{rounds}: PSNR "
+                     f"{cand_psnr:.2f} ({'kept' if kept else 'reverted'}) "
+                     f"===")
+            if kept:
+                best_psnr, padded, mask = cand_psnr, cand, cand_mask
+        if export:
+            export_scene_json(padded, cfg.scene_json,
+                              mask=mask.cpu().numpy())
+            self.log(f"  => Saved polished scene to {cfg.scene_json} "
+                     f"(PSNR {best_psnr:.2f})")
+            self.save_preview(padded, mask,
+                              os.path.join(cfg.steps_dir,
+                                           "final_polished.png"))
+        return padded, mask
+
+    def refine_geometry(
+        self,
+        padded: SceneParams,
+        mask: torch.Tensor,
+        rounds: int = 1,
+        proposals: int = 768,
+        phases: int = 3,
+        frac: float = 0.05,
+        tiles: int = 512,
+        proposal_bias: str = "uniform",   # "uniform" | "residual"
+        sigma_c: float = 0.3,             # center noise (x primitive radius)
+        sigma_r: float = 0.15,            # raw radius noise
+        sigma_col: float = 0.0,           # joint color-logit proposals
+        accept_temp: float = 0.0,         # Metropolis chain temperature
+        fringe_weight: float = 1.0,       # band-weighted acceptance loss
+        light_proposals: int = 0,         # global light/ambient micro-search
+        key: Optional[np.ndarray] = None,
+        chunk: Optional[int] = None,      # proposals per host read
+        export: bool = True,
+        cameras: Optional[list] = None,
+        targets: Optional[list] = None,
+    ) -> tuple[SceneParams, torch.Tensor]:
+        """Derivative-free geometry refinement, greedily PSNR-gated.
+
+        Runs train/refine.geometry_refine (stochastic hill-climbing on
+        centers/radii, and colors when ``sigma_col`` > 0, against two
+        disjoint fg-tile ray batches), optionally followed by
+        train/refine.light_refine (``light_proposals`` > 0), and keeps a
+        round only if mean train-view PSNR improves: the never-regress
+        contract of ``polish``. Each round samples fresh acceptance
+        batches. Requires the tile-culled configuration."""
+        cfg = self.cfg
+        if not cfg.use_culling or cfg.dataset_order != "morton":
+            raise ValueError(
+                "refine_geometry needs use_culling + dataset_order='morton' "
+                "(fg-tile acceptance batches + the culled renderer)")
+        if proposal_bias not in ("uniform", "residual"):
+            raise ValueError(f"unknown proposal_bias {proposal_bias!r}")
+        if key is None:
+            key = fold_key(np.asarray([0, cfg.seed], np.uint32), 0xEF1E)
+        cameras, targets = self._load_views(cameras, targets)
+        kern = self.culled_march_normal_fn
+        best_psnr = self.views_psnr(padded, mask, cameras, targets)
+        self.log(f"Refine baseline: PSNR {best_psnr:.2f}")
+        for r in range(rounds):
+            key, sub = split_key(key)
+            batches = sample_fg_tile_batches(
+                self.dataset, tiles=tiles, seed=cfg.seed + 7919 * (r + 1),
+                tile=cfg.cull_tile)
+            select_probs = None
+            if proposal_bias == "residual":
+                # Concentrate proposals on the primitives carrying the
+                # residual error (recomputed per round: geometry moves).
+                select_probs = primitive_residual_scores(
+                    padded, mask, self.dataset, cfg, cfg.max_smooth_k,
+                    kern=kern)
+            cand, stats = geometry_refine(
+                padded, mask, batches, cfg, kern=kern, proposals=proposals,
+                phases=phases, frac=frac, sigma_c=sigma_c, sigma_r=sigma_r,
+                sigma_col=sigma_col, accept_temp=accept_temp,
+                fringe_weight=fringe_weight, select_probs=select_probs,
+                generator=generator_from_key(sub, self.device), chunk=chunk,
+                log=self.log)
+            n_acc, n_prop = stats.accepted, stats.proposals
+            if light_proposals > 0:
+                key, sub = split_key(key)
+                cand, lstats = light_refine(
+                    cand, mask, batches, cfg, kern=kern,
+                    proposals=light_proposals, fringe_weight=fringe_weight,
+                    generator=generator_from_key(sub, self.device),
+                    log=self.log)
+                n_acc += lstats.accepted
+                n_prop += lstats.proposals
+            cand_psnr = self.views_psnr(cand, mask, cameras, targets)
+            kept = cand_psnr > best_psnr
+            self.events.append(dict(kind="refine", round=r + 1,
+                                    baseline=float(best_psnr),
+                                    psnr=float(cand_psnr), accepted=n_acc,
+                                    proposals=n_prop, kept=bool(kept)))
+            self.log(f"=== Refine round {r + 1}/{rounds}: PSNR "
+                     f"{cand_psnr:.2f} ({n_acc}/{n_prop} "
+                     f"proposals, {'kept' if kept else 'reverted'}) ===")
+            if kept:
+                best_psnr, padded = cand_psnr, cand
+        if export:
+            export_scene_json(padded, cfg.scene_json,
+                              mask=mask.cpu().numpy())
+            self.log(f"  => Saved refined scene to {cfg.scene_json} "
+                     f"(PSNR {best_psnr:.2f})")
+        return padded, mask
 
     @torch.no_grad()
     def prefill_t_cache(self, padded: SceneParams, mask: torch.Tensor,
@@ -342,9 +617,146 @@ class Trainer:
                            mask_sharpness=cfg.render.mask_sharpness,
                            cull=self._cull_render(),
                            order_wh=(cfg.width, cfg.height),
+                           mask_pixel_mult=cfg.render.mask_pixel_mult,
+                           pixel_angle=cfg.render.pixel_angle,
                            coverage_mode=cfg.render.coverage_mode)
         save_array_as_image(img, cfg.width, cfg.height, path)
         self.log(f"Saved image to {path}")
+
+    # --- stage guard (config.stage_guard) ------------------------------- #
+
+    def _guard_psnr(self, padded: SceneParams, mask: torch.Tensor) -> float:
+        """Mean train-view PSNR under the FINAL render config: the
+        stage-invariant health metric the in-run guard compares
+        (``stage_guard_views`` > 0 takes an even subsample of the views)."""
+        cfg = self.cfg
+        if self._guard_eval is None:
+            cams = load_cameras(cfg.cameras_json)
+            if cfg.stage_guard_views and cfg.stage_guard_views < len(cams):
+                stride = max(len(cams) // cfg.stage_guard_views, 1)
+                cams = cams[::stride][: cfg.stage_guard_views]
+            self._guard_eval = (
+                cams, [load_image_as_array(c["file"]) for c in cams])
+        cams, tgts = self._guard_eval
+        return self.views_psnr(padded, mask, cams, tgts, chunk=16384)
+
+    def _guarded_boundary(self, prev: dict, attempt: int
+                          ) -> tuple[SceneParams, float]:
+        """Density control with the boundary guard: run prune/split/merge
+        from the previous ACCEPTED stage result with an (attempt, redo)-
+        salted rng, measure the next generation's PSNR, and re-roll when
+        the boundary alone costs more than stage_guard_boundary_db (a bad
+        stochastic split draw loses 1-2 dB before the next stage ever runs,
+        a healthy boundary 0-0.5 dB). Returns (next params, their PSNR);
+        keeps the best roll even if every roll fails the bar."""
+        cfg = self.cfg
+        stage = prev["stage"]
+        best = None
+        for redo in range(cfg.stage_guard_retries + 1):
+            rng = np.random.default_rng((cfg.seed, stage, attempt, redo))
+            cand = self._density_control(
+                prev["padded"], prev["mask"], prev["n_live"],
+                prev["init_centers"], stage, rng)
+            p = self._guard_psnr(*pad_params(cand, bucket_size(cand.n)))
+            if best is None or p > best[0]:
+                best = (p, cand)
+            if p >= prev["psnr"] - cfg.stage_guard_boundary_db:
+                break
+            self.guard_boundary_redo_count += 1
+            self.log(f"  !! stage guard: boundary after stage {stage} cost "
+                     f"{prev['psnr'] - p:.2f} dB "
+                     f"({prev['psnr']:.2f} -> {p:.2f}) — re-rolling density "
+                     f"control ({redo + 1}/{cfg.stage_guard_retries + 1})")
+            self.metrics.log(stage=stage, guard_boundary_psnr=round(p, 3),
+                             guard_boundary_redo=redo)
+        return best[1], best[0]
+
+    def _run_guarded(self, params: SceneParams, key: np.ndarray,
+                     start_stage: int) -> tuple[SceneParams, torch.Tensor]:
+        """The multi-stage loop with the in-run collapse guard
+        (config.stage_guard).
+
+        The density-control trajectory is stochastic and occasionally
+        collapses a run (runaway splitting). A failing stage fails
+        deterministically under restart-key retries: the damage is in the
+        stage's ENTRY params, the preceding stochastic prune/split draw.
+        The guard therefore retries the (boundary, stage) pair jointly: a
+        stage that fails to improve train-view PSNR by
+        stage_guard_min_gain_db is re-run from a FRESH density-control roll
+        of the previous accepted result (plus a fresh restart key), and the
+        boundary itself re-rolls immediately when it alone costs more than
+        stage_guard_boundary_db. Best candidates are kept at both levels,
+        so the guard never returns worse than unguarded."""
+        cfg = self.cfg
+        padded = mask = None
+        prev = None                       # accepted previous-stage state
+        entry, entry_psnr = params, None  # current stage entry params
+        for stage in range(start_stage, cfg.stages):
+            self.log(f"=== Stage {stage + 1}/{cfg.stages} "
+                     f"(N = {entry.n}) ===")
+            key, key_stage = split_key(key)
+            best = None
+            for attempt in range(cfg.stage_guard_retries + 1):
+                if attempt > 0 and prev is not None:
+                    entry, entry_psnr = self._guarded_boundary(prev, attempt)
+                params_s = entry
+                init_centers = params_s.centers.detach().cpu().numpy()
+                if entry_psnr is None:
+                    entry_psnr = self._guard_psnr(*pad_params(
+                        params_s, bucket_size(params_s.n)))
+                padded_c, mask_c, _ = self.run_stage(
+                    params_s, stage,
+                    generator_from_key(fold_key(key_stage, attempt),
+                                       self.device))
+                psnr_post = self._guard_psnr(padded_c, mask_c)
+                self.metrics.log(stage=stage,
+                                 guard_psnr_pre=round(entry_psnr, 3),
+                                 guard_psnr_post=round(psnr_post, 3),
+                                 guard_attempt=attempt)
+                self.events.append(dict(kind="guard", stage=stage,
+                                        attempt=attempt,
+                                        psnr_pre=float(entry_psnr),
+                                        psnr_post=float(psnr_post)))
+                if best is None or psnr_post > best[0]:
+                    best = (psnr_post, padded_c, mask_c, params_s,
+                            init_centers)
+                if psnr_post >= entry_psnr + cfg.stage_guard_min_gain_db:
+                    self.log(f"  stage guard: {entry_psnr:.2f} -> "
+                             f"{psnr_post:.2f} dB"
+                             + (f" (attempt {attempt} recovered)" if attempt
+                                else ""))
+                    break
+                retryable = attempt < cfg.stage_guard_retries
+                if retryable:
+                    self.guard_retry_count += 1
+                action = ("retrying (fresh boundary + key)" if retryable
+                          else "keeping best attempt")
+                self.log(f"  !! stage guard: stage {stage} PSNR "
+                         f"{psnr_post:.2f} < entry {entry_psnr:.2f} "
+                         f"{cfg.stage_guard_min_gain_db:+g} — {action} "
+                         f"({attempt + 1}/{cfg.stage_guard_retries + 1})")
+            psnr_stage, padded, mask, params_s, init_centers = best
+            if stage == cfg.stages - 1:
+                self._export_final(padded, mask, params_s.n)
+                break
+            self.save_preview(
+                padded, mask,
+                os.path.join(cfg.steps_dir, f"stage_{stage}.png"))
+            prev = {"padded": padded, "mask": mask, "n_live": params_s.n,
+                    "init_centers": init_centers, "psnr": psnr_stage,
+                    "stage": stage}
+            entry, entry_psnr = self._guarded_boundary(prev, 0)
+            self.save_checkpoint(stage + 1, entry, key)
+        return padded, mask
+
+    def _export_final(self, padded: SceneParams, mask: torch.Tensor,
+                      n: int) -> None:
+        cfg = self.cfg
+        self.log("Final Stage Complete! Exporting results...")
+        export_scene_json(padded, cfg.scene_json, mask=mask.cpu().numpy())
+        self.log(f"  => Saved to {cfg.scene_json} (N = {n})")
+        self.save_preview(padded, mask,
+                          os.path.join(cfg.steps_dir, "final_1.png"))
 
     def _ckpt_path(self, stage: int) -> Optional[str]:
         if not self.cfg.checkpoint_dir:
@@ -390,6 +802,8 @@ class Trainer:
                 self.log(f"Resuming from stage {start_stage} checkpoint")
 
         self.log("Start Multi-Stage Optimization...")
+        if cfg.stage_guard:
+            return self._run_guarded(params, key, start_stage)
         padded, mask = pad_params(params, bucket_size(params.n))
         for stage in range(start_stage, cfg.stages):
             self.log(f"=== Stage {stage + 1}/{cfg.stages} (N = {params.n}) "
@@ -399,35 +813,46 @@ class Trainer:
             padded, mask, _ = self.run_stage(
                 params, stage, generator_from_key(sub, self.device))
             if stage == cfg.stages - 1:
-                self.log("Final Stage Complete! Exporting results...")
-                export_scene_json(padded, cfg.scene_json,
-                                  mask=mask.cpu().numpy())
-                self.log(f"  => Saved to {cfg.scene_json} (N = {params.n})")
-                self.save_preview(padded, mask,
-                                  os.path.join(cfg.steps_dir, "final_1.png"))
+                self._export_final(padded, mask, params.n)
                 break
             self.save_preview(padded, mask,
                               os.path.join(cfg.steps_dir,
                                            f"stage_{stage}.png"))
-            params = self._density_control(padded, params.n,
+            params = self._density_control(padded, mask, params.n,
                                            stage_init_centers, stage, rng)
             self.save_checkpoint(stage + 1, params, key)
         return padded, mask
 
-    def _density_control(self, padded: SceneParams, n_live: int,
-                         stage_init_centers: np.ndarray, stage: int,
-                         rng: np.random.Generator) -> SceneParams:
-        """Generation boundary: prune/split on the live rows → next
-        generation's params."""
+    def _density_control(self, padded: SceneParams, mask: torch.Tensor,
+                         n_live: int, stage_init_centers: np.ndarray,
+                         stage: int, rng: np.random.Generator) -> SceneParams:
+        """Generation boundary: prune/split (+ optional merge / residual
+        scoring) on the live rows → next generation's params."""
         cfg = self.cfg
         live = params_to_numpy(unpad_params(padded, n_live))
+        split_scores = None
+        if cfg.density.split_mode == "residual":
+            # Residual attribution through the compositor weights, scored
+            # on the padded params (live rows are the first n) under the
+            # STAGE's forward, not the final one: residuals must reflect
+            # the model the stage trained.
+            k_end = anneal_for_step(cfg, stage, cfg.steps_per_stage)[1]
+            split_scores = primitive_residual_scores(
+                padded, mask, self.dataset,
+                self._stage_cfg(self._render_overrides_for_stage(stage)),
+                k_end, kern=self.culled_march_normal_fn)[:n_live]
         centers, colors, radii, stats = prune_and_split(
             live["centers"], live["colors"], live["radii"],
-            stage_init_centers, stage, cfg.stages, rng, cfg.density)
+            stage_init_centers, stage, cfg.stages, rng, cfg.density,
+            split_scores=split_scores)
         params = params_from_numpy(
             {"centers": centers, "colors": colors, "radii": radii,
              "light_dir": live["light_dir"], "ambient": live["ambient"]},
             device=self.device)
+        self.events.append(dict(kind="density", stage=stage, n_before=n_live,
+                                n_after=params.n, kept=int(stats.kept),
+                                split=int(stats.split),
+                                merged=int(stats.merged)))
         self.log(f"  => Pruning & Splitting complete. Next N = {params.n} "
                  f"(kept {stats.kept}, split {stats.split}, pruned "
                  f"{stats.pruned_size}+{stats.pruned_flyaway}+"

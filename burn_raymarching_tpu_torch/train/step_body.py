@@ -47,13 +47,18 @@ from burn_raymarching_tpu_torch.render.culled import (
 from burn_raymarching_tpu_torch.train.loss import compute_loss
 
 
-def lr_scale_tree(cfg: TrainConfig) -> dict[str, float]:
-    """Per-parameter-group LR multipliers, keyed like SceneParams."""
-    if cfg.lr_scale_centers_stages:
-        raise NotImplementedError(
-            "TrainConfig.lr_scale_centers_stages (--lr-centers-stages) is "
-            "not ported")
-    return {"centers": cfg.lr_scale_centers, "colors": cfg.lr_scale_colors,
+def lr_scale_tree(cfg: TrainConfig, stage: Optional[int] = None
+                  ) -> dict[str, float]:
+    """Per-parameter-group LR multipliers, keyed like SceneParams.
+
+    With ``stage`` and a non-empty cfg.lr_scale_centers_stages the centers
+    multiplier is the stage's entry, clamped to the last one, so polish's
+    past-the-end stage keeps the final value."""
+    centers = cfg.lr_scale_centers
+    if stage is not None and cfg.lr_scale_centers_stages:
+        sched = cfg.lr_scale_centers_stages
+        centers = float(np.float32(sched[min(stage, len(sched) - 1)]))
+    return {"centers": centers, "colors": cfg.lr_scale_colors,
             "radii": cfg.lr_scale_radii, "light_dir": cfg.lr_scale_light,
             "ambient": cfg.lr_scale_light}
 
@@ -74,6 +79,47 @@ def schedule_for_step(cfg: TrainConfig, stage: int, step: int
     lr = (base_lr * f32(cfg.lr_midstage_factor)
           if step > cfg.steps_per_stage // 2 else base_lr)
     return float(progress), float(smooth_k), float(uniform_ratio), float(lr)
+
+
+def subpixel_offsets(ss: int) -> np.ndarray:
+    """[ss, 2] fixed sub-pixel sample offsets in [-0.5, 0.5) pixel units:
+    a cell-centered regular grid for perfect squares, a golden-ratio
+    lattice otherwise. Deterministic, so the supersampled forward is a
+    fixed quadrature of the pixel footprint rather than per-step noise."""
+    g = int(round(ss ** 0.5))
+    if g * g == ss:
+        xs = (np.arange(g) + 0.5) / g - 0.5
+        u, v = np.meshgrid(xs, xs)
+        return np.stack([u.reshape(-1), v.reshape(-1)], axis=1)
+    i = np.arange(ss, dtype=np.float64) + 0.5
+    return np.stack([i / ss - 0.5, (i * 0.6180339887498949) % 1.0 - 0.5],
+                    axis=1)
+
+
+def expand_subpixel(ro: torch.Tensor, rd: torch.Tensor, ss: int,
+                    pixel_angle: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """[N,3] rays → [N*ss,3]: each ray becomes ``ss`` copies jittered over
+    its pixel footprint (``pixel_angle`` radians square), pixel-major so
+    sub-rays of one pixel stay adjacent (cull tiles keep their cones).
+
+    The offsets are applied along an orthonormal basis perpendicular to
+    the ray, not the camera's image axes: the packed rays carry no camera
+    id, and for the area integral only the footprint's size matters.
+    Sub-ray directions are re-normalized."""
+    off = torch.as_tensor(subpixel_offsets(ss) * pixel_angle, dtype=rd.dtype,
+                          device=rd.device)                     # [ss, 2]
+    up = torch.where(rd[:, 1:2].abs() < 0.9,
+                     rd.new_tensor([0.0, 1.0, 0.0])[None, :],
+                     rd.new_tensor([1.0, 0.0, 0.0])[None, :])
+    e1 = torch.linalg.cross(rd, up)
+    e1 = e1 / torch.sqrt(torch.sum(e1 * e1, dim=1, keepdim=True))
+    e2 = torch.linalg.cross(rd, e1)
+    rdj = (rd[:, None, :]
+           + off[None, :, 0, None] * e1[:, None, :]
+           + off[None, :, 1, None] * e2[:, None, :])            # [N, ss, 3]
+    rdj = rdj / torch.sqrt(torch.sum(rdj * rdj, dim=2, keepdim=True))
+    roj = ro[:, None, :].expand(rdj.shape)
+    return roj.reshape(-1, 3), rdj.reshape(-1, 3)
 
 
 def uses_fused_shade(cfg: TrainConfig, march_normal_fn) -> bool:
@@ -146,6 +192,18 @@ def make_device_step(cfg: TrainConfig, *, march_normal_fn: Optional[Callable],
     fused = uses_fused_shade(cfg, march_normal_fn)
     tile_march = culled_march_fn or culled_march_normals_xla
     hier = cfg.use_culling and cfg.cull_hierarchical
+    # Pixel-footprint supersampling (RenderConfig.supersample): batch/ss
+    # unique pixels, each expanded into ss jittered sub-rays (the ray count
+    # is unchanged), the prediction averaged per pixel before the loss.
+    ss = int(rc.supersample)
+    if ss > 1 and batch % ss:
+        raise ValueError(f"batch ({batch}) must divide by supersample ({ss})")
+    n_unique = batch // ss
+    if cfg.sample_mode == "tile" and n_unique % cfg.cull_tile:
+        raise ValueError(
+            f"unique pixels/step ({n_unique}) must divide by cull_tile "
+            f"({cfg.cull_tile}) — with supersample, batch must be a "
+            f"multiple of supersample * cull_tile")
 
     def device_step(params: SceneParams, generator: torch.Generator,
                     stage: int, step: int, mask: torch.Tensor,
@@ -157,12 +215,17 @@ def make_device_step(cfg: TrainConfig, *, march_normal_fn: Optional[Callable],
             cfg, stage, step)
         if idx is None:
             idx = sample_step_indices(cfg, generator, packed.shape[0],
-                                      fg_indices, n_fg, batch, uniform_ratio)
+                                      fg_indices, n_fg, n_unique,
+                                      uniform_ratio)
         if cfg.use_culling:
             # Sorted indices → tile-coherent rays; a with-replacement sample
             # is order-free, so the loss is unchanged.
             idx = torch.sort(idx).values
         ro, rd, tgt = gather_batch(packed, idx)
+        if ss > 1:
+            # Sub-rays are pixel-major-adjacent, so sorted unique pixels
+            # stay tile-coherent after expansion; tgt stays per pixel.
+            ro, rd = expand_subpixel(ro, rd, ss, rc.pixel_angle)
 
         culled_pre = None
         t = normal = None
@@ -172,6 +235,10 @@ def make_device_step(cfg: TrainConfig, *, march_normal_fn: Optional[Callable],
                 t0 = None
                 if warm:
                     t0 = t_cache[idx][:, None] * cfg.warm_backoff
+                    if ss > 1:
+                        # One cached root per pixel: its sub-rays share the
+                        # warm start, the cache takes back their mean root.
+                        t0 = t0.repeat_interleave(ss, dim=0)
                 if cfg.use_culling:
                     idx_t, valid_t, cs, rs, qs = culled_tables(
                         cfg, ro, rd, c_det, r_det, smooth_k, mask,
@@ -193,7 +260,10 @@ def make_device_step(cfg: TrainConfig, *, march_normal_fn: Optional[Callable],
                                                 smooth_k, mask=mask,
                                                 **warm_kw)
                 if warm:
-                    t_cache[idx] = t.reshape(-1)
+                    t_new = t.reshape(-1)
+                    if ss > 1:
+                        t_new = t_new.reshape(-1, ss).mean(dim=1)
+                    t_cache[idx] = t_new
 
         c_p, col_p, r_p, ld_p, amb_p = activate(params)
         if culled_pre is not None:
@@ -222,6 +292,8 @@ def make_device_step(cfg: TrainConfig, *, march_normal_fn: Optional[Callable],
                                 mask_pixel_mult=rc.mask_pixel_mult,
                                 pixel_angle=rc.pixel_angle,
                                 coverage_mode=rc.coverage_mode)
+        if ss > 1:
+            out = out.reshape(n_unique, ss, 3).mean(dim=1)
         loss = compute_loss(
             params, out, tgt, progress, mask=mask, cfg=cfg.loss,
             repulsion_clusters=clusters if cfg.cluster_repulsion else None,

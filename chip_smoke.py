@@ -57,9 +57,35 @@ non-zero without the final result line:
                    train-view PSNR above the init's, measured in this run;
                    then steady-state rays/s of the kernel and --no-pallas
                    steps and the kernel step's device-busy share
-                   (torch.profiler).
+                   (torch.profiler); then a 2 x 30-step run with
+                   split_mode="residual" across one boundary: N before and
+                   after and the number split;
+  9. refine_c4   — the quality recipe on the same knot set through
+                   tools/run_c5.py: runs/c4_headline/scene_c5.json (the JAX
+                   package's 28.39 dB scene) loaded with --from-scene under
+                   its recipe (gaussian coverage, mask sharpness 40), its
+                   PSNR held to the recorded one within 0.1 dB, then one
+                   polish round of 100 steps and one refine round (512-tile
+                   acceptance batches, residual proposal bias, colour and
+                   light proposals), neither returning a lower PSNR; K3 and
+                   K4 must have been launched; then one refine round at fine
+                   proposal scales on the scene phase 8 trained, which must
+                   accept proposals, and whose gate must agree with the
+                   scene it exports; K3 at the acceptance loss's shape (512
+                   tiles x 512 rays, K = 2,048, cold) against its plain
+                   version on a slice of those tiles; per proposal wall ms,
+                   device-busy share, K3 ms and peak memory; the residual
+                   scores of two calls bitwise equal;
+ 10. guard_c1    — train_cli at config-1 width for 2 x 100 steps with
+                   --stage-guard, --ss-stages 4,1 and --polish 1: the
+                   guard's PSNRs and retry counts; K1 and K2 must have been
+                   launched.
+K1's early exit (``early_exit=True``; no path sets it) is held at every
+table width of phase 3 against the fixed-count launch, against its plain
+version, and timed beside the fixed-count launch.
 The line before the last is {"kernels": [...]}: per kernel its launches on
-the training path, error, ``ms`` (the wrapper call between CUDA events),
+the training path (``launches``) and on the quality path that runs it
+(``launches_quality``: phase 9 for K3 and K4, phase 10 for K1 and K2), error, ``ms`` (the wrapper call between CUDA events),
 ``device_ms`` (the same call replayed from a CUDA graph), the plain
 version's time, ``bound_ms`` (the least time the card could take, see
 ``bound``) and ``library_ms`` (one PyTorch call computing the same function,
@@ -112,6 +138,20 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 SFU_LANES_PER_CLK_PER_SM = 16
 CARD = {}
+# The JAX package's headline config-4 scene and the PSNR it recorded for it
+# (runs/c4_headline/results.json "trained"); the port's evaluator must read
+# the same scene within HEADLINE_TOL_DB on the port's own knot set.
+HEADLINE_SCENE = os.path.join(ROOT, "runs", "c4_headline", "scene_c5.json")
+HEADLINE_PSNR_DB = 28.39054227314559
+HEADLINE_TOL_DB = 0.1
+# The acceptance loss's shape: tiles per batch, and the slice of them that
+# K3 is held against its plain version on.
+REFINE_TILES, REFINE_CHECK_TILES = 512, 16
+
+
+def events_of(events: list, kind: str) -> list:
+    """The records of one kind from a ``Trainer.events`` list."""
+    return [e for e in events if e["kind"] == kind]
 
 
 def emit(phase: str, **fields) -> None:
@@ -336,6 +376,61 @@ def main_path_inputs(torch, dev, live: int = M_LIVE, slots: int = M_SLOTS):
     return ro, rd, padded, mask, activate, cot
 
 
+def k1_early_exit(torch, k1, args, mask, t_fixed, n_fixed, tols, label,
+                  failures) -> dict:
+    """K1 with ``early_exit=True`` at one table width.
+
+    Against the fixed-count launch (the same arithmetic up to the exit): a
+    ray that the fixed march brings to a hit (t < 10) has converged, and
+    the two may differ by ``early_exit_tolerance`` there (at most num_steps
+    further steps, each under 1e-5); the normals by MARCH_TOLS'; a ray ends
+    past MISS_T in one exactly when it does in the other. Against the plain
+    early exit (every ray frozen on its own): the fixed march's tolerances
+    plus the early exit's. The work counted for the bound is what this
+    run's rays need: for each ray the steps until the plain early exit
+    froze it, plus the 7 evaluations after the march."""
+    ro, rd, c, r, k = args
+    tol_exit = k1.early_exit_tolerance(40)
+    t_e, n_e = k1.march_shade(*args, mask=mask, early_exit=True)
+    t_p, n_p = k1.march_shade_plain(*args, mask=mask, early_exit=True)
+    hit = t_fixed[:, 0] < 10.0
+    dt = (t_e - t_fixed).abs()[:, 0]
+    dn = (n_e - n_fixed).abs().amax(dim=1)
+    past = (t_e[:, 0] >= k1.MISS_T) != (t_fixed[:, 0] >= k1.MISS_T)
+    vs_plain = march_errors(torch, t_e, n_e, t_p, n_p)
+    out = {"tol_t_vs_fixed": tol_exit,
+           "max_abs_err_t_hit_vs_fixed": dt[hit].max().item(),
+           "max_abs_err_normal_hit_vs_fixed": dn[hit].max().item(),
+           "rays_past_miss_t_in_one_only": int(past.sum()),
+           "vs_plain_early_exit": vs_plain}
+    check_close(failures, f"K1 {label} early exit t vs fixed",
+                out["max_abs_err_t_hit_vs_fixed"], tol_exit)
+    check_close(failures, f"K1 {label} early exit normal vs fixed",
+                out["max_abs_err_normal_hit_vs_fixed"],
+                tols["max_abs_err_normal_hit"])
+    check_close(failures, f"K1 {label} early exit rays past MISS_T",
+                float(out["rays_past_miss_t_in_one_only"]), 0.0)
+    check_close(failures, f"K1 {label} early exit t vs plain",
+                vs_plain["max_abs_err_t_hit"],
+                tols["max_abs_err_t_hit"] + tol_exit)
+    check_close(failures, f"K1 {label} early exit normal vs plain",
+                vs_plain["max_abs_err_normal_hit"],
+                tols["max_abs_err_normal_hit"])
+    # Steps each ray needs: those the plain freeze took.
+    _, steps = k1.march_early_exit(*args, mask=mask, return_steps=True)
+    n_live = int(mask.sum())
+    out["mean_steps_needed"] = steps.mean().item()
+    out["ms"] = time_ms(torch, lambda: k1.march_shade(
+        *args, mask=mask, early_exit=True))
+    out["device_ms"] = graph_ms(torch, lambda: k1.march_shade(
+        *args, mask=mask, early_exit=True))
+    out["plain_ms"] = time_ms(torch, lambda: k1.march_shade_plain(
+        *args, mask=mask, early_exit=True), reps=5)
+    out.update(march_bound(float((steps.sum() + 7.0 * steps.numel())
+                                 * n_live), ro, rd, c, r, t_e, n_e))
+    return out
+
+
 def phase_kernels(torch, dev) -> dict:
     from burn_raymarching_tpu_torch.ops.cuda import build
     from burn_raymarching_tpu_torch.ops.cuda import march_shade_kernel as k1
@@ -390,6 +485,8 @@ def phase_kernels(torch, dev) -> dict:
         live = int(mask.sum())
         out.update(march_bound(ro.shape[0] * live * 47.0, ro, rd, c, r,
                                t_k, n_k))
+        out["early_exit"] = k1_early_exit(torch, k1, args, mask, t_k, n_k,
+                                          tols, label, failures)
         emit("kernel", name="march_shade", slots=c.shape[0], live=live,
              tol=tols, **out)
         return out, (t_k, n_k)
@@ -405,7 +502,10 @@ def phase_kernels(torch, dev) -> dict:
         max_abs_err=main["cold"]["max_abs_err_t_hit"], ms=main["ms"],
         device_ms=main["device_ms"], plain_ms=main["plain_ms"],
         bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-        library_ms=None)
+        library_ms=None,
+        early_exit={key: main["early_exit"][key] for key in (
+            "max_abs_err_t_hit_vs_fixed", "tol_t_vs_fixed", "ms",
+            "device_ms", "plain_ms", "bound_ms", "mean_steps_needed")})
 
     # The kernel that packs K1's table, bitwise against its plain version.
     table_k = k1.pack_march_table(c, r, mask, k)
@@ -956,21 +1056,26 @@ HAND_KERNELS = ("march_shade_kernel", "march_pack_kernel",
 
 def device_profile(torch, trainer, final, mask, t_cache, steps: int = 10
                    ) -> dict:
-    """torch.profiler over ``steps`` steady steps, read from its trace's
-    device events (kernels, copies, memsets; not the annotation spans that
-    the trace also places on the device) → busy device time per step (the
-    union of their intervals), events per step, the five kernel names
-    with the most device time, and the device time of each hand-written
-    kernel (HAND_KERNELS) that ran."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """``profile_calls`` over ``steps`` steady training steps."""
     one = step_runner(torch, trainer, final, mask, t_cache)
     for s in range(1, 4):
         one(s)
+    return profile_calls(torch, lambda i: one(4 + i), steps)
+
+
+def profile_calls(torch, one, steps: int) -> dict:
+    """torch.profiler over ``one(0)`` .. ``one(steps - 1)``, read from its
+    trace's device events (kernels, copies, memsets; not the annotation
+    spans that the trace also places on the device) → busy device time per
+    step (the union of their intervals), events per step, the five kernel
+    names with the most device time, and the device time of each
+    hand-written kernel (HAND_KERNELS) that ran."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for s in range(4, 4 + steps):
+        for s in range(steps):
             one(s)
         torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
@@ -999,9 +1104,9 @@ def device_profile(torch, trainer, final, mask, t_cache, steps: int = 10
                                          for k, d in hand.items() if d > 0}}
 
 
-def phase_generate_and_train(torch) -> dict:
-    """generate + train (config 1) → K1 and K2's launch counts on that
-    path."""
+def phase_generate_and_train(torch, tmp: str) -> dict:
+    """generate + train (config 1) in ``tmp`` (the dataset stays in
+    ``tmp``/data) → K1 and K2's launch counts on that path."""
     import numpy as np
 
     from burn_raymarching_tpu_torch.data.scene_io import load_cameras
@@ -1012,74 +1117,81 @@ def phase_generate_and_train(torch) -> dict:
     from burn_raymarching_tpu_torch.data.image_io import load_image_as_array
     from burn_raymarching_tpu_torch.train.loop import Trainer
 
-    counters = {"march_shade": k1.march_shade,
-                "march_pack": k1.pack_march_table,
-                "shade_pack": k2.pack_shade_table,
-                "shade_fwd": k2.launch_shade_fwd,
-                "shade_bwd": k2.launch_shade_bwd}
-    with tempfile.TemporaryDirectory() as tmp:
-        data = os.path.join(tmp, "data")
-        t0 = time.perf_counter()
-        generate.main(["--out", data, "--size", "256", "--device", "cuda"])
-        emit("generate", views=10, size=256,
-             seconds=round(time.perf_counter() - t0, 3))
+    counters = c1_counters()
+    data = os.path.join(tmp, "data")
+    t0 = time.perf_counter()
+    generate.main(["--out", data, "--size", "256", "--device", "cuda"])
+    emit("generate", views=10, size=256,
+         seconds=round(time.perf_counter() - t0, 3))
 
-        for fn in counters.values():
-            fn.launches = 0
-        t0 = time.perf_counter()
-        trainer, padded, mask = train_cli.main([
-            "--cameras", os.path.join(data, "cameras.json"),
-            "--stages", str(TRAIN_STAGES), "--steps", str(TRAIN_STEPS),
-            "--scene-out", os.path.join(tmp, "scene.json"),
-            "--steps-dir", os.path.join(tmp, "steps"),
-            "--checkpoint-dir", os.path.join(tmp, "checkpoints"),
-            "--device", "cuda"])
-        torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in counters.items()}
-        missing = [name for name, n in launches.items() if n <= 0]
-        if missing:
-            raise AssertionError(f"kernels not launched on the main path: "
-                                 f"{missing}")
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    trainer, padded, mask = train_cli.main([
+        "--cameras", os.path.join(data, "cameras.json"),
+        "--stages", str(TRAIN_STAGES), "--steps", str(TRAIN_STEPS),
+        "--scene-out", os.path.join(tmp, "scene.json"),
+        "--steps-dir", os.path.join(tmp, "steps"),
+        "--checkpoint-dir", os.path.join(tmp, "checkpoints"),
+        "--device", "cuda"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    missing = [name for name, n in launches.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the main path: "
+                             f"{missing}")
 
-        cfg = trainer.cfg
-        n_final = int(mask.sum().item())
-        final_loss = trainer.loss_history[-1]
-        with open(os.path.join(tmp, "scene.json")) as f:
-            scene = json.load(f)
-        if scene["num_spheres"] != n_final:
-            raise AssertionError("scene.json does not hold the final scene")
-        cams = load_cameras(os.path.join(data, "cameras.json"))
-        targets = [load_image_as_array(c["file"]) for c in cams]
-        ev = evaluate_views(padded, cams, targets, cfg.width,
-                            cfg.height, smooth_k=cfg.max_smooth_k, mask=mask,
-                            march_normal_fn=trainer.march_normal_fn)
-        rate_kernels = step_rate(torch, trainer, padded, mask)
-        wall_ms = cfg.batch_size / rate_kernels * 1000.0
-        prof = device_profile(torch, trainer, padded, mask, None, steps=20)
-        plain_trainer = Trainer(dataclasses.replace(cfg, use_pallas=False),
-                                trainer.dataset, log=lambda s: None)
-        rate_plain = step_rate(torch, plain_trainer, padded, mask)
-        emit("train", stages=TRAIN_STAGES, steps_per_stage=TRAIN_STEPS,
-             batch=cfg.batch_size, seconds=round(train_s, 3),
-             final_n=n_final, final_loss=final_loss,
-             psnr_mean=ev["mean"], psnr_min=ev["min"],
-             loss_history=trainer.loss_history,
-             rays_per_s_kernels=rate_kernels,
-             rays_per_s_plain=rate_plain, wall_ms_per_step=wall_ms,
-             device_busy_share=prof["device_busy_ms_per_step"] / wall_ms,
-             **prof, launches=launches,
-             all_finite=bool(np.isfinite(
-                 np.asarray(scene["centers"] + scene["radii"])).all()))
-        if not (math.isfinite(final_loss) and ev["mean"] > MIN_PSNR_DB):
-            raise AssertionError(f"bad training result: loss {final_loss}, "
-                                 f"PSNR {ev['mean']} (need > {MIN_PSNR_DB})")
+    cfg = trainer.cfg
+    n_final = int(mask.sum().item())
+    final_loss = trainer.loss_history[-1]
+    with open(os.path.join(tmp, "scene.json")) as f:
+        scene = json.load(f)
+    if scene["num_spheres"] != n_final:
+        raise AssertionError("scene.json does not hold the final scene")
+    cams = load_cameras(os.path.join(data, "cameras.json"))
+    targets = [load_image_as_array(c["file"]) for c in cams]
+    ev = evaluate_views(padded, cams, targets, cfg.width,
+                        cfg.height, smooth_k=cfg.max_smooth_k, mask=mask,
+                        march_normal_fn=trainer.march_normal_fn)
+    rate_kernels = step_rate(torch, trainer, padded, mask)
+    wall_ms = cfg.batch_size / rate_kernels * 1000.0
+    prof = device_profile(torch, trainer, padded, mask, None, steps=20)
+    plain_trainer = Trainer(dataclasses.replace(cfg, use_pallas=False),
+                            trainer.dataset, log=lambda s: None)
+    rate_plain = step_rate(torch, plain_trainer, padded, mask)
+    emit("train", stages=TRAIN_STAGES, steps_per_stage=TRAIN_STEPS,
+         batch=cfg.batch_size, seconds=round(train_s, 3),
+         final_n=n_final, final_loss=final_loss,
+         psnr_mean=ev["mean"], psnr_min=ev["min"],
+         loss_history=trainer.loss_history,
+         rays_per_s_kernels=rate_kernels,
+         rays_per_s_plain=rate_plain, wall_ms_per_step=wall_ms,
+         device_busy_share=prof["device_busy_ms_per_step"] / wall_ms,
+         **prof, launches=launches,
+         all_finite=bool(np.isfinite(
+             np.asarray(scene["centers"] + scene["radii"])).all()))
+    if not (math.isfinite(final_loss) and ev["mean"] > MIN_PSNR_DB):
+        raise AssertionError(f"bad training result: loss {final_loss}, "
+                             f"PSNR {ev['mean']} (need > {MIN_PSNR_DB})")
 
     return launches
 
 
-def phase_c4(torch) -> dict:
-    """generate_c4 + train_c4 → K3 and K4's launch counts on that path."""
+def c1_counters() -> dict:
+    from burn_raymarching_tpu_torch.ops.cuda import march_shade_kernel as k1
+    from burn_raymarching_tpu_torch.ops.cuda import shade_kernel as k2
+
+    return {"march_shade": k1.march_shade,
+            "march_pack": k1.pack_march_table,
+            "shade_pack": k2.pack_shade_table,
+            "shade_fwd": k2.launch_shade_fwd,
+            "shade_bwd": k2.launch_shade_bwd}
+
+
+def phase_c4(torch, tmp: str) -> dict:
+    """generate_c4 + train_c4 in ``tmp`` (the knot set stays in
+    ``tmp``/data_c4) → K3 and K4's launch counts on that path."""
     from burn_raymarching_tpu_torch.ops.cuda import culled_march_kernel as k3
     from burn_raymarching_tpu_torch.ops.cuda import repulsion_kernel as k4
     from burn_raymarching_tpu_torch.tools import generate, run_c5, train_cli
@@ -1088,58 +1200,346 @@ def phase_c4(torch) -> dict:
     counters = {"culled_march": k3.culled_march_normals,
                 "repulsion_fwd": k4.launch_rep_fwd,
                 "repulsion_bwd": k4.launch_rep_bwd}
-    with tempfile.TemporaryDirectory() as tmp:
-        data = os.path.join(tmp, "data")
-        t0 = time.perf_counter()
-        generate.main(run_c5.generate_argv(data, views=C4_VIEWS,
-                                           size=C4_SIZE, gt_n=C4_GT_N))
-        emit("generate_c4", views=C4_VIEWS, size=C4_SIZE, gt_n=C4_GT_N,
-             seconds=round(time.perf_counter() - t0, 3))
+    data = os.path.join(tmp, "data_c4")
+    t0 = time.perf_counter()
+    generate.main(run_c5.generate_argv(data, views=C4_VIEWS,
+                                       size=C4_SIZE, gt_n=C4_GT_N))
+    emit("generate_c4", views=C4_VIEWS, size=C4_SIZE, gt_n=C4_GT_N,
+         seconds=round(time.perf_counter() - t0, 3))
 
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    trainer, padded, mask = train_cli.main(run_c5.recipe_argv(
+        data, tmp, size=C4_SIZE, init_n=C4_INIT_N, steps=TRAIN_STEPS,
+        stages=TRAIN_STAGES, cull_budget=C4_BUDGET))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    missing = [name for name, n in launches.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the config-4 "
+                             f"path: {missing}")
+
+    cfg = trainer.cfg
+    final_loss = trainer.loss_history[-1]
+    t0 = time.perf_counter()
+    psnr_init = trainer.views_psnr(*run_c5.init_padded(trainer))
+    psnr = trainer.views_psnr(padded, mask)
+    eval_s = (time.perf_counter() - t0) / 2
+    rate_kernels = step_rate(torch, trainer, padded, mask,
+                             t_cache=trainer.t_cache)
+    wall_ms = cfg.batch_size / rate_kernels * 1000.0
+    prof = device_profile(torch, trainer, padded, mask, trainer.t_cache)
+    plain_trainer = Trainer(dataclasses.replace(cfg, use_pallas=False),
+                            trainer.dataset, log=lambda s: None)
+    rate_plain = step_rate(torch, plain_trainer, padded, mask, steps=10,
+                           t_cache=trainer.t_cache)
+    emit("train_c4", stages=TRAIN_STAGES, steps_per_stage=TRAIN_STEPS,
+         batch=cfg.batch_size, init_n=C4_INIT_N,
+         seconds=round(train_s, 3), final_n=int(mask.sum().item()),
+         final_loss=final_loss, loss_history=trainer.loss_history,
+         psnr_init=psnr_init, psnr_trained=psnr,
+         eval_seconds_per_pass=round(eval_s, 3),
+         rays_per_s_kernels=rate_kernels, rays_per_s_plain=rate_plain,
+         wall_ms_per_step=wall_ms,
+         device_busy_share=prof["device_busy_ms_per_step"] / wall_ms,
+         **prof,
+         launches=launches)
+    if not (math.isfinite(final_loss) and psnr > psnr_init):
+        raise AssertionError(f"bad config-4 result: loss {final_loss}, "
+                             f"PSNR {psnr} (init {psnr_init})")
+
+    # One boundary with residual-attribution splitting.
+    t0 = time.perf_counter()
+    trainer_r, _, mask_r = train_cli.main(run_c5.recipe_argv(
+        data, os.path.join(tmp, "residual"), size=C4_SIZE,
+        init_n=C4_INIT_N, steps=30, stages=TRAIN_STAGES,
+        cull_budget=C4_BUDGET, extra=("--split-mode", "residual")))
+    boundary = events_of(trainer_r.events, "density")
+    if not boundary or boundary[0]["split"] <= 0:
+        raise AssertionError("the residual split mode split nothing")
+    emit("residual_split_c4", **boundary[0],
+         final_n=int(mask_r.sum().item()),
+         seconds=round(time.perf_counter() - t0, 3))
+    return launches
+
+
+def headline_argv(data: str, out: str) -> list:
+    """tools/run_c5.py arguments of the JAX package's headline config-4
+    recipe (runs/c4_headline/results.json: 5 stages, gaussian coverage,
+    mask sharpness 40, sigmoid on the stacked first stage), with 100-step
+    stages so that a polish round is 100 steps."""
+    return ["--out", out, "--data", data, "--views", str(C4_VIEWS),
+            "--size", str(C4_SIZE), "--gt-n", str(C4_GT_N),
+            "--init-n", str(C4_INIT_N), "--cull-budget", str(C4_BUDGET),
+            "--stages", "5", "--steps", str(TRAIN_STEPS),
+            "--coverage", "gaussian", "--mask-sharp", "40",
+            "--coverage-stages", "sigmoid,gaussian", "--skip-ceiling"]
+
+
+def phase_refine_c4(torch, dev, tmp: str) -> tuple[dict, dict]:
+    """The quality recipe on the knot set that phase_c4 left in ``tmp`` →
+    (K3's launch count on this path, K3's figures at the acceptance loss's
+    shape)."""
+    import numpy as np
+
+    from burn_raymarching_tpu_torch.ops.cuda import culled_march_kernel as k3
+    from burn_raymarching_tpu_torch.render.culled import (
+        culled_march_normals_xla,
+    )
+    from burn_raymarching_tpu_torch.models.scene import activate
+    from burn_raymarching_tpu_torch.tools import run_c5, train_cli
+    from burn_raymarching_tpu_torch.train import refine
+    from burn_raymarching_tpu_torch.train.loop import Trainer, build_dataset
+    from burn_raymarching_tpu_torch.train.residual import (
+        primitive_residual_scores,
+    )
+    from burn_raymarching_tpu_torch.train.step_body import culled_tables
+
+    from burn_raymarching_tpu_torch.data.scene_io import load_scene_json
+    from burn_raymarching_tpu_torch.ops.cuda import repulsion_kernel as k4
+
+    data = os.path.join(tmp, "data_c4")
+    out = os.path.join(tmp, "refine")
+    refine_flags = ["--refine-proposals", "64", "--refine-phases", "2",
+                    "--refine-bias", "residual", "--refine-colors", "0.25",
+                    "--refine-fringe", "4", "--refine-light", "8"]
+    counters = {"culled_march": k3.culled_march_normals,
+                "repulsion_fwd": k4.launch_rep_fwd,
+                "repulsion_bwd": k4.launch_rep_bwd}
+
+    def gated_run(argv):
+        """tools/run_c5.py with every count of this path set to 0 just
+        before and read just after → (results, launches, seconds, peak)."""
         for fn in counters.values():
             fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        trainer, padded, mask = train_cli.main(run_c5.recipe_argv(
-            data, tmp, size=C4_SIZE, init_n=C4_INIT_N, steps=TRAIN_STEPS,
-            stages=TRAIN_STAGES, cull_budget=C4_BUDGET))
+        results = run_c5.main(argv)
         torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in counters.items()}
-        missing = [name for name, n in launches.items() if n <= 0]
-        if missing:
-            raise AssertionError(f"kernels not launched on the config-4 "
-                                 f"path: {missing}")
+        seconds = time.perf_counter() - t0
+        return (results, {name: fn.launches for name, fn in counters.items()},
+                round(seconds, 3), torch.cuda.max_memory_allocated())
 
-        cfg = trainer.cfg
-        final_loss = trainer.loss_history[-1]
-        t0 = time.perf_counter()
-        psnr_init = run_c5.views_psnr(trainer, *run_c5.init_padded(trainer),
-                                      cull=trainer._cull_render())
-        psnr = run_c5.views_psnr(trainer, padded, mask,
-                                 cull=trainer._cull_render())
-        eval_s = (time.perf_counter() - t0) / 2
-        rate_kernels = step_rate(torch, trainer, padded, mask,
-                                 t_cache=trainer.t_cache)
-        wall_ms = cfg.batch_size / rate_kernels * 1000.0
-        prof = device_profile(torch, trainer, padded, mask, trainer.t_cache)
-        plain_trainer = Trainer(dataclasses.replace(cfg, use_pallas=False),
-                                trainer.dataset, log=lambda s: None)
-        rate_plain = step_rate(torch, plain_trainer, padded, mask, steps=10,
-                               t_cache=trainer.t_cache)
-        emit("train_c4", stages=TRAIN_STAGES, steps_per_stage=TRAIN_STEPS,
-             batch=cfg.batch_size, init_n=C4_INIT_N,
-             seconds=round(train_s, 3), final_n=int(mask.sum().item()),
-             final_loss=final_loss, loss_history=trainer.loss_history,
-             psnr_init=psnr_init, psnr_trained=psnr,
-             eval_seconds_per_pass=round(eval_s, 3),
-             rays_per_s_kernels=rate_kernels, rays_per_s_plain=rate_plain,
-             wall_ms_per_step=wall_ms,
-             device_busy_share=prof["device_busy_ms_per_step"] / wall_ms,
-             **prof,
-             launches=launches)
-        if not (math.isfinite(final_loss) and psnr > psnr_init):
-            raise AssertionError(f"bad config-4 result: loss {final_loss}, "
-                                 f"PSNR {psnr} (init {psnr_init})")
+    # The main path: the committed scene through --from-scene, one polish
+    # round (K3 and K4 in its 100 training steps), one refine round (K3 in
+    # the acceptance loss).
+    results, launches, seconds, peak_main = gated_run(
+        headline_argv(data, out) + ["--from-scene", HEADLINE_SCENE,
+                                    "--polish", "1", "--refine", "1",
+                                    *refine_flags])
+    polish = events_of(results["events"], "polish")
+    rounds = events_of(results["events"], "refine")
+    if len(polish) != 1 or len(rounds) != 1:
+        raise AssertionError("polish or refine round missing from the run")
+    emit("refine_c4", scene="runs/c4_headline/scene_c5.json",
+         psnr_recorded_by_jax_package=HEADLINE_PSNR_DB,
+         psnr_from_scene=results["init"], psnr_after=results["trained"],
+         polish=polish[0], refine=rounds[0], n_final=results["n_final"],
+         seconds=seconds, peak_memory_bytes=peak_main, launches=launches)
+    if abs(results["init"] - HEADLINE_PSNR_DB) > HEADLINE_TOL_DB:
+        raise AssertionError(
+            f"the committed scene reads {results['init']:.3f} dB, the JAX "
+            f"package recorded {HEADLINE_PSNR_DB:.3f}")
+    if not (math.isfinite(results["trained"])
+            and results["trained"] >= results["init"]):
+        raise AssertionError(f"the gated rounds returned a lower PSNR: "
+                             f"{results['init']} -> {results['trained']}")
+    missing = [name for name, n in launches.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the polish and "
+                             f"refine path: {missing}")
+
+    # The accept path: the committed scene sits at an optimum of the coarse
+    # proposal scales, so a cut round there accepts little or nothing. The
+    # scene that phase_c4's 2 x 100 steps left is far from one: a refine
+    # round at fine scales (1/4 and 1/8 of the defaults) must accept
+    # proposals there, and a kept round must return other params and a
+    # higher PSNR.
+    trained_scene = os.path.join(tmp, "scene_c5.json")
+    out_t = os.path.join(tmp, "refine_trained")
+    res_t, launches_t, seconds_t, _ = gated_run([
+        "--out", out_t, "--data", data, "--views", str(C4_VIEWS),
+        "--size", str(C4_SIZE), "--gt-n", str(C4_GT_N),
+        "--init-n", str(C4_INIT_N), "--cull-budget", str(C4_BUDGET),
+        "--stages", str(TRAIN_STAGES), "--steps", str(TRAIN_STEPS),
+        "--skip-ceiling", "--from-scene", trained_scene, "--refine", "1",
+        "--refine-proposals", "64", "--refine-phases", "2",
+        "--refine-sigma-c", "0.075", "--refine-sigma-r", "0.0375",
+        "--refine-bias", "residual", "--refine-colors", "0.0625",
+        "--refine-fringe", "4"])
+    round_t = events_of(res_t["events"], "refine")[0]
+    before = load_scene_json(trained_scene)
+    after = load_scene_json(os.path.join(out_t, "scene_c5.json"))
+    moved = float(np.abs(after["centers"] - before["centers"]).max())
+    emit("refine_accept_c4", scene="the scene phase_c4 trained",
+         psnr_from_scene=res_t["init"], psnr_after=res_t["trained"],
+         refine=round_t, max_center_move=moved, seconds=seconds_t,
+         launches=launches_t)
+    if round_t["accepted"] <= 0 or launches_t["culled_march"] <= 0:
+        raise AssertionError(f"the refine round accepted no proposal on a "
+                             f"barely trained scene: {round_t}")
+    # (A reverted round re-exports the loaded scene: its decode and encode
+    # move a centre by float32 rounding only.)
+    if round_t["kept"] != (moved > 1e-5) or round_t["kept"] != (
+            res_t["trained"] > res_t["init"]):
+        raise AssertionError(f"the gate and the returned scene disagree: "
+                             f"{round_t}, centers moved {moved}, PSNR "
+                             f"{res_t['init']} -> {res_t['trained']}")
+
+    # Below: the same trainer configuration, driven piece by piece to read
+    # where a proposal's time goes. None of it counts as a launch above.
+    cfg = train_cli.build_config(train_cli.make_parser().parse_args(
+        run_c5.recipe_argv(
+            data, out, size=C4_SIZE, init_n=C4_INIT_N, steps=TRAIN_STEPS,
+            stages=5, cull_budget=C4_BUDGET, mask_sharp=40.0,
+            extra=("--coverage", "gaussian"))))
+    trainer = Trainer(cfg, build_dataset(cfg, device=dev),
+                      log=lambda s: None)
+    padded, mask = run_c5.scene_padded(HEADLINE_SCENE, dev)
+    kern = trainer.culled_march_normal_fn
+    failures = []
+
+    # Residual scores: two calls, bitwise equal.
+    t0 = time.perf_counter()
+    scores = primitive_residual_scores(padded, mask, trainer.dataset, cfg,
+                                       cfg.max_smooth_k, kern=kern)
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    again = primitive_residual_scores(padded, mask, trainer.dataset, cfg,
+                                      cfg.max_smooth_k, kern=kern)
+    if not (np.array_equal(scores, again) and np.isfinite(scores).all()
+            and scores.max() > 0):
+        failures.append("residual scores differ between two calls")
+    emit("residual_scores", seconds=round(score_s, 3),
+         bitwise_repeatable=bool(np.array_equal(scores, again)),
+         nonzero=int((scores > 0).sum()), live=int(mask.sum().item()))
+
+    # K3 at the acceptance loss's shape: 512 fg tiles, cold, tables from the
+    # committed scene; against the plain version on a slice of the tiles.
+    batches = refine.sample_fg_tile_batches(
+        trainer.dataset, tiles=REFINE_TILES, seed=7919, tile=cfg.cull_tile)
+    ro, rd, _ = batches[0]
+    with torch.no_grad():
+        c, _, r, _, _ = activate(padded)
+        _, valid, cs, rs, qs = culled_tables(cfg, ro, rd, c, r, C4_K, mask)
+    b = ro.shape[0] // cfg.cull_tile
+    args = (ro.reshape(b, cfg.cull_tile, 3), rd.reshape(b, cfg.cull_tile, 3),
+            cs, rs, qs)
+    t_k, n_k = k3.culled_march_normals(*args, C4_K)
+    torch.cuda.synchronize()
+    pick = torch.arange(0, b, b // REFINE_CHECK_TILES,
+                        device=dev)[:REFINE_CHECK_TILES]
+    part = [a[pick].contiguous() for a in args]
+    t_p, n_p = culled_march_normals_xla(*part, C4_K)
+    t_64, n_64 = culled_march_normals_xla(*[a.double() for a in part], C4_K)
+    errs = march_errors(torch, t_k[pick], n_k[pick], t_p, n_p)
+    tols = march_noise_tols(torch, t_p, n_p, t_64, n_64)
+    for key, tol in tols.items():
+        check_close(failures, f"K3 refine shape {key}", errs[key], tol)
+    valid_slots = int(valid.sum())
+    shape = dict(
+        refine_tiles=b, refine_valid_slots=valid_slots,
+        refine_max_abs_err=errs["max_abs_err_t_hit"],
+        refine_ms=time_ms(torch, lambda: k3.culled_march_normals(
+            *args, C4_K), reps=10),
+        refine_device_ms=graph_ms(torch, lambda: k3.culled_march_normals(
+            *args, C4_K), launches=5),
+        refine_plain_ms_on_slice=time_ms(
+            torch, lambda: culled_march_normals_xla(*part, C4_K), reps=3),
+        refine_bound_ms=march_bound(47.0 * cfg.cull_tile * valid_slots,
+                                    *args, t_k, n_k)["bound_ms"])
+    emit("kernel", name="culled_march_refine_shape", checked_tiles=len(pick),
+         errs=errs, tol=tols, **shape)
+
+    # One proposal = the acceptance loss on both batches. Wall time from 8
+    # proposals of the greedy chain, then the same under the profiler.
+    def chain(n):
+        return refine.geometry_refine(
+            padded, mask, batches, cfg, kern=kern, proposals=n, phases=1,
+            sigma_col=0.25, fringe_weight=4.0, select_probs=scores, chunk=n,
+            generator=torch.Generator(device=dev).manual_seed(0),
+            log=lambda s: None)
+
+    chain(2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_prop = 8
+    t0 = time.perf_counter()
+    _, stats = chain(n_prop)
+    torch.cuda.synchronize()
+    # The chain also evaluates the starting point once on each batch.
+    wall_ms = (time.perf_counter() - t0) * 1000.0 / (n_prop + 1)
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_calls(torch, lambda i: chain(n_prop), 1)
+    per = {key: (prof[key] / (n_prop + 1)) for key in (
+        "device_busy_ms_per_step", "device_events_per_step")}
+    k3_ms = prof["hand_kernels_ms_per_step"].get("culled_march_kernel",
+                                                 0.0) / (n_prop + 1)
+    emit("refine_proposal", tiles_per_batch=b, batches=2,
+         wall_ms_per_proposal=wall_ms,
+         device_busy_ms_per_proposal=per["device_busy_ms_per_step"],
+         device_busy_share=per["device_busy_ms_per_step"] / wall_ms,
+         device_events_per_proposal=per["device_events_per_step"],
+         k3_ms_per_proposal=k3_ms,
+         k3_share_of_busy=k3_ms / per["device_busy_ms_per_step"],
+         top_kernels_ms_per_proposal=[[name, d / (n_prop + 1)] for name, d
+                                      in prof["top_kernels_ms_per_step"]],
+         peak_memory_bytes=peak, loss_before=stats.loss_before,
+         loss_after=stats.loss_after, accepted=stats.accepted)
+    if not (math.isfinite(stats.loss_before)
+            and math.isfinite(stats.loss_after)):
+        failures.append("the acceptance loss is not finite")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches, shape
+
+
+def phase_guard_c1(torch, tmp: str) -> dict:
+    """Config 1 with the stage guard, a supersampled first stage and one
+    polish round, on the dango set that phase 5 left in ``tmp`` → K1 and
+    K2's launch counts on this path."""
+    from burn_raymarching_tpu_torch.tools import train_cli
+
+    counters = c1_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    out = os.path.join(tmp, "guard")
+    pixel_angle = 2.0 * math.tan(math.radians(50.0 / 2)) / 256
+    t0 = time.perf_counter()
+    trainer, padded, mask = train_cli.main([
+        "--cameras", os.path.join(tmp, "data", "cameras.json"),
+        "--stages", str(TRAIN_STAGES), "--steps", str(TRAIN_STEPS),
+        "--scene-out", os.path.join(out, "scene.json"),
+        "--steps-dir", os.path.join(out, "steps"), "--checkpoint-dir", "",
+        "--stage-guard", "--ss-stages", "4,1",
+        "--pixel-angle", repr(pixel_angle), "--polish", "1",
+        "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    guard = events_of(trainer.events, "guard")
+    polish = events_of(trainer.events, "polish")
+    psnr = trainer.views_psnr(padded, mask)
+    emit("guard_c1", stages=TRAIN_STAGES, steps_per_stage=TRAIN_STEPS,
+         supersample_stages=list(trainer.cfg.supersample_stages),
+         seconds=round(seconds, 3), guard=guard,
+         guard_retries=trainer.guard_retry_count,
+         guard_boundary_redos=trainer.guard_boundary_redo_count,
+         polish=polish, psnr_final=psnr, final_n=int(mask.sum().item()),
+         loss_history=trainer.loss_history, launches=launches)
+    missing = [name for name, n in launches.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the guarded path: "
+                             f"{missing}")
+    if not (len(polish) == 1 and len(guard) >= TRAIN_STAGES
+            and math.isfinite(psnr)
+            and all(math.isfinite(e["psnr_post"]) for e in guard)
+            and all(math.isfinite(x) for x in trainer.loss_history)
+            and psnr >= polish[0]["baseline"]):
+        raise AssertionError(f"bad guarded run: PSNR {psnr}, guard {guard}, "
+                             f"polish {polish}")
     return launches
 
 
@@ -1181,11 +1581,24 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels(torch, dev)
     kernels.update(phase_kernels_c4(torch, dev))
-    launches = phase_generate_and_train(torch)
-    launches.update(phase_c4(torch))
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = phase_generate_and_train(torch, tmp)
+        launches.update(phase_c4(torch, tmp))
+        launches_refine, refine_shape = phase_refine_c4(torch, dev, tmp)
+        launches_guard = phase_guard_c1(torch, tmp)
+    kernels["culled_march"].update(refine_shape)
+    # ``launches``: the two training paths (phases 6 and 8);
+    # ``launches_quality``: the refine and guard paths (phases 9 and 10).
+    # Every path had its counts set to 0 just before it and read after it,
+    # and every kernel is counted on one of the two quality paths.
+    quality = {**launches_guard, **launches_refine}
+    if set(quality) != set(SOURCES):
+        raise AssertionError(f"kernels not counted on a quality path: "
+                             f"{sorted(set(SOURCES) - set(quality))}")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k][0],
-         "replaces": SOURCES[k][1], "launches": launches[k], **kernels[k]}
+         "replaces": SOURCES[k][1], "launches": launches[k],
+         "launches_quality": quality[k], **kernels[k]}
         for k in SOURCES]}), flush=True)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

@@ -250,17 +250,6 @@ def test_resumes_from_a_jax_checkpoint(tiny_data, tmp_path, capsys):
     assert int(mask.sum()) == 9
 
 
-@pytest.mark.parametrize("flags", [["--stage-guard"],
-                                   ["--lr-centers-stages", "0.1"],
-                                   ["--best-of", "2"], ["--polish", "1"],
-                                   ["--refine", "1"],
-                                   ["--split-mode", "residual"],
-                                   ["--coverage-stages", "sigmoid"]])
-def test_unported_features_raise(tiny_data, tmp_path, flags):
-    with pytest.raises(NotImplementedError):
-        _cli(tiny_data, str(tmp_path), *flags)
-
-
 def test_cuda_request_without_card_raises(tiny_data, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -491,7 +480,7 @@ def test_ceiling_and_init_psnr_match_jax(tiny_knot):
     kw = dict(smooth_k=128.0, softmax_sharpness=40.0, mask_sharpness=60.0)
 
     ceiling, gt_mask = run_c5.ceiling_padded(400, "cpu")
-    got = run_c5.views_psnr(tr, ceiling, gt_mask, cull=None)
+    got = tr.views_psnr(ceiling, gt_mask, dense=True)
     want = j_eval(jax_params({k: nn(getattr(ceiling, k))
                               for k in PARAM_KEYS}),
                   cams, tgts, 32, 32, mask=jnp.asarray(nn(gt_mask)),
@@ -499,7 +488,7 @@ def test_ceiling_and_init_psnr_match_jax(tiny_knot):
     assert abs(got - want) < 0.05 and want > 25.0
 
     init, mask = run_c5.init_padded(tr)
-    got = run_c5.views_psnr(tr, init, mask, cull=tr._cull_render())
+    got = tr.views_psnr(init, mask)
     with open(cfg.init_points) as f:
         pts = np.asarray(json.load(f)["points"], np.float32).reshape(-1, 3)
     j_init_p = j_cloud(cfg.init_n, seed=cfg.seed, points=pts,

@@ -273,3 +273,123 @@ def repulsion_sum_sliced(cs, nb_cs, cents, w, nb_w, mi, nbm, far_w,
             (w[:, :, None] * col_w[:, None, sl])
             / (torch.sqrt(torch.clamp(d2, min=1e-6)) + extra + 1e-6))
     return total
+
+
+# --- the quality recipe: a tiny knot capture and refine noise for both ---- #
+
+KNOT_FLAGS = ["--init-layout", "cloud", "--init-n", "120", "--turbo",
+              "--cull", "32", "--sample-mode", "tile", "--cluster-repulsion",
+              "--wd-mode", "decoupled", "--lr", "0.02",
+              "--lr-scales", "0.001,1,0.1,0.5", "--smooth-k", "128",
+              "--sharp", "40,60", "--merge-cell", "0.04"]
+
+
+def tiny_knot_dataset(out_dir: str, *extra_flags, views: int = 2,
+                      size: int = 32, cull_tile: int = 64,
+                      cull_budget: int = 64, batch: int = 256, **cfg_kw):
+    """The tiny knot capture for both packages → (cfg, arrays, port dataset,
+    JAX dataset).
+
+    The port's generator writes ``views`` images at ``size``² into
+    ``out_dir`` (once); ``cfg`` is the large-scene recipe cut to that size
+    (the port's TrainConfig is a field-for-field copy of the JAX package's,
+    which reads it by attribute, so one object serves both); ``arrays`` are the Morton-ordered (rays_o, rays_d, targets)
+    as numpy, and both datasets are built from those same arrays."""
+    import dataclasses
+    import os
+
+    from burn_raymarching_tpu.config import TrainConfig
+    from burn_raymarching_tpu.data.dataset import RayDataset as JaxDataset
+    from burn_raymarching_tpu_torch.data.dataset import RayDataset
+    from burn_raymarching_tpu_torch.tools import generate, train_cli
+    from burn_raymarching_tpu_torch.train.loop import build_dataset
+
+    if not os.path.exists(os.path.join(out_dir, "cameras.json")):
+        generate.main(["--out", out_dir, "--size", str(size), "--views",
+                       str(views), "--scene", "knot", "--gt-k", "128",
+                       "--gt-sharp", "40", "--device", "cpu"])
+    port_cfg = train_cli.build_config(train_cli.make_parser().parse_args(
+        ["--cameras", os.path.join(out_dir, "cameras.json"),
+         "--width", str(size), "--height", str(size), "--batch", str(batch),
+         "--init-points", os.path.join(out_dir, "points.json"),
+         "--no-pallas", "--checkpoint-dir", "", *KNOT_FLAGS, *extra_flags]))
+    port_cfg = dataclasses.replace(port_cfg, cull_tile=cull_tile,
+                                   cull_budget=cull_budget,
+                                   cull_cluster_group=8, **cfg_kw)
+    fields = {f.name for f in dataclasses.fields(TrainConfig)}
+    assert fields == {f.name for f in dataclasses.fields(port_cfg)}
+    ds = build_dataset(port_cfg)
+    arrays = tuple(nn(x).copy() for x in (ds.rays_o, ds.rays_d, ds.targets))
+    ds = RayDataset(*arrays, fg_threshold=port_cfg.fg_pixel_threshold)
+    ds_j = JaxDataset(*arrays, fg_threshold=port_cfg.fg_pixel_threshold)
+    return port_cfg, arrays, ds, ds_j
+
+
+def knot_params(cfg, m_pad: int = 128, seed: int = 0,
+                raw_radius: float = -3.0) -> tuple[dict, np.ndarray]:
+    """A prior-seeded cloud on the knot with random colours and radii
+    (physical radius ~softplus(``raw_radius``) + 0.01: 0.06 by default) →
+    (raw padded arrays with the checkpoint keys, mask [m_pad])."""
+    import json
+
+    with open(cfg.init_points) as f:
+        pts = np.asarray(json.load(f)["points"], np.float32).reshape(-1, 3)
+    rng = np.random.default_rng(seed)
+    n = cfg.init_n
+    raw = {
+        "centers": (pts[rng.integers(0, pts.shape[0], n)]
+                    + rng.normal(0, 0.02, (n, 3))).astype(np.float32),
+        "colors": rng.normal(0, 1.0, (n, 3)).astype(np.float32),
+        "radii": rng.normal(raw_radius, 0.3, (n, 1)).astype(np.float32),
+        "light_dir": np.asarray([-0.4, 0.6, -1.0], np.float32),
+        "ambient": np.asarray([-1.5], np.float32),
+    }
+    return pad_raw(raw, m_pad - n), np.arange(m_pad) < n
+
+
+def jax_refine_draws(key, m_pad: int, n_chunks: int, light: bool = False):
+    """The noise the JAX package's refine chains draw, for injection into
+    the port's ``draws`` hook → draws(chunk_index, i).
+
+    Replays train/refine.py's key handling: one ``jax.random.split`` of the
+    running key per chunk; proposal ``i`` of a chunk folds ``i`` into the
+    chunk's key and splits it in four (selection uniforms, centre, radius
+    and colour normals; the Metropolis uniform comes from a further fold
+    with 0x7e39), or in two for ``light_refine`` (light_dir, ambient)."""
+    import jax
+
+    subs = []
+    for _ in range(n_chunks):
+        key, sub = jax.random.split(key)
+        subs.append(sub)
+
+    def draws(chunk_index, i):
+        kk = jax.random.fold_in(subs[chunk_index], i)
+        if light:
+            k1, k2 = jax.random.split(kk)
+            return (np.array(jax.random.normal(k1, (3,))),
+                    np.array(jax.random.normal(k2, (1,))))
+        k1, k2, k3, k4 = jax.random.split(kk, 4)
+        return (np.array(jax.random.uniform(k1, (m_pad, 1))),
+                np.array(jax.random.normal(k2, (m_pad, 3))),
+                np.array(jax.random.normal(k3, (m_pad, 1))),
+                np.array(jax.random.normal(k4, (m_pad, 3))),
+                np.array(jax.random.uniform(
+                    jax.random.fold_in(kk, 0x7e39), ())))
+
+    return draws
+
+
+def jax_culled_march(*args, t_init=None, **kw):
+    """The JAX package's plain culled march behind the port's K3 signature
+    (torch tensors in and out). At k = 128 around spheres of radius ~0.03
+    two float32 marches differ by ~3e-3 in the normals, so a test of what
+    surrounds the march hands both packages this one."""
+    import jax.numpy as jnp
+
+    from burn_raymarching_tpu.render.culled import culled_march_normals_xla
+
+    t, n = culled_march_normals_xla(
+        *(jnp.asarray(nn(a)) if torch.is_tensor(a) else a for a in args),
+        t_init=None if t_init is None else jnp.asarray(nn(t_init)), **kw)
+    return torch.tensor(np.asarray(t)), torch.tensor(np.asarray(n))
