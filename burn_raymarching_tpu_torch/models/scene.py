@@ -97,8 +97,11 @@ def scene_forward(
     mask_pixel_mult: float = 0.0,
     pixel_angle: float = 0.0,
     coverage_mode: str = "sigmoid",
+    model_axis=None,
 ) -> torch.Tensor:
-    """Full forward: activations + differentiable render → [N, 3]."""
+    """Full forward: activations + differentiable render → [N, 3].
+    With ``model_axis`` the primitive rows of ``params`` and ``mask`` are
+    this rank's shard (render_diff)."""
     centers, colors, radii, light_dir, ambient = activate(params)
     return render_diff(
         ray_org, ray_dir, centers, colors, radii, light_dir, ambient,
@@ -106,7 +109,8 @@ def scene_forward(
         march_normal_fn=march_normal_fn, num_steps=num_steps,
         softmax_sharpness=softmax_sharpness, mask_sharpness=mask_sharpness,
         normal_eps=normal_eps, mask_pixel_mult=mask_pixel_mult,
-        pixel_angle=pixel_angle, coverage_mode=coverage_mode)
+        pixel_angle=pixel_angle, coverage_mode=coverage_mode,
+        model_axis=model_axis)
 
 
 def init_scene_params_cloud(n: int, seed: int = 0, extent: float = 0.8,

@@ -9,6 +9,14 @@ Gradient topology matches the reference:
   * Lambertian shading with learnable light_dir + ambient;
   * softmax(-10 d) color compositing (-1e30 logits on padded slots);
   * sigmoid(-15 sdf) coverage.
+
+With ``model_axis`` (a parallel.collectives.Axis) the primitive arguments
+are this rank's shard of an M-sharded table: the soft-min and the softmax
+compositor combine shards with a detached max and summed exp sums, and the
+colour mix is summed over the shards. The converged point and the softmax
+denominator are replicated values that enter each shard's own terms, so
+they pass through ``pvary``; every other use of a replicated value stays
+replicated, and the output is replicated.
 """
 
 from __future__ import annotations
@@ -23,6 +31,12 @@ from burn_raymarching_tpu_torch.ops.sdf import (
     pairwise_sphere_dists,
     scene_normal,
     scene_sdf,
+)
+from burn_raymarching_tpu_torch.parallel.collectives import (
+    Axis,
+    pmax,
+    psum,
+    pvary,
 )
 
 
@@ -50,6 +64,18 @@ def adaptive_coverage(dist_scene, t_final, mask_sharpness,
     return torch.sigmoid(-dist_scene / w)
 
 
+def sharded_softmax(logits: torch.Tensor, model_axis: Optional[Axis] = None,
+                    dim: int = 1) -> torch.Tensor:
+    """Softmax over ``dim``; with ``model_axis`` over the columns of every
+    shard: global max (detached), then the summed denominator."""
+    if model_axis is None:
+        return torch.softmax(logits, dim=dim)
+    mx = pmax(torch.amax(logits, dim=dim, keepdim=True).detach(), model_axis)
+    ex = torch.exp(logits - mx)
+    denom = psum(torch.sum(ex, dim=dim, keepdim=True), model_axis)
+    return ex / pvary(denom, model_axis)
+
+
 def render_diff(
     ray_org: torch.Tensor,      # [N, 3]
     ray_dir: torch.Tensor,      # [N, 3]
@@ -69,31 +95,36 @@ def render_diff(
     mask_pixel_mult: float = 0.0,
     pixel_angle: float = 0.0,
     coverage_mode: str = "sigmoid",
+    model_axis: Optional[Axis] = None,
 ) -> torch.Tensor:
     """Render a batch of rays → [N, 3] linear RGB.
 
     ``march_normal_fn`` (e.g. the K1 kernel) returns the detached
-    (t, normal) in one call, replacing the separate march + scene_normal.
+    (t, normal) in one call, replacing the separate march + scene_normal;
+    it sees a whole table, so it is not used with ``model_axis``.
     """
     c_det, r_det = centers.detach(), radii.detach()
-    if march_normal_fn is not None:
+    ax = {} if model_axis is None else dict(model_axis=model_axis)
+    if march_normal_fn is not None and model_axis is None:
         t, normal = march_normal_fn(ray_org, ray_dir, c_det, r_det, smooth_k,
                                     mask=mask, num_steps=num_steps,
                                     normal_eps=normal_eps)
         t, normal = t.detach(), normal.detach()
     else:
         t = march_fn(ray_org, ray_dir, c_det, r_det, smooth_k, mask=mask,
-                     num_steps=num_steps)
+                     num_steps=num_steps, **ax)
         normal = None
     # Gradient reattachment: one SDF evaluation at the detached point.
     p_approx = ray_org + ray_dir * t
-    dist_last = scene_sdf(p_approx, centers, radii, smooth_k, mask=mask)
+    dist_last = scene_sdf(p_approx, centers, radii, smooth_k, mask=mask, **ax)
     t_final = t + dist_last
     p_final = ray_org + ray_dir * t_final
     if normal is None:
         with torch.no_grad():
             normal = scene_normal(p_final.detach(), c_det, r_det, smooth_k,
-                                  mask=mask, eps=normal_eps)
+                                  mask=mask, eps=normal_eps, **ax)
+    # The shard's own terms at the (replicated) converged point.
+    p_shard = p_final if model_axis is None else pvary(p_final, model_axis)
 
     # Lambertian shading.
     ld_norm = light_dir / torch.sqrt(torch.sum(light_dir * light_dir))
@@ -102,16 +133,19 @@ def render_diff(
     lighting = ambient + diffuse * (1.0 - ambient)                     # [N,1]
 
     # Softmax depth compositing.
-    logits = pairwise_sphere_dists(p_final, centers, radii) * (
+    logits = pairwise_sphere_dists(p_shard, centers, radii) * (
         -softmax_sharpness)
     if mask is not None:
         logits = torch.where(mask[None, :].bool(), logits,
                              torch.full_like(logits, MASKED_NEG))
-    weights = torch.softmax(logits, dim=1)                             # [N,M]
-    object_color = (weights @ colors) * lighting
+    weights = sharded_softmax(logits, model_axis)                      # [N,M]
+    mixed = weights @ colors
+    if model_axis is not None:
+        mixed = psum(mixed, model_axis)
+    object_color = mixed * lighting
 
     # Coverage mask.
-    dist_scene = scene_sdf(p_final, centers, radii, smooth_k, mask=mask)
+    dist_scene = scene_sdf(p_shard, centers, radii, smooth_k, mask=mask, **ax)
     coverage = adaptive_coverage(dist_scene, t_final, mask_sharpness,
                                  mask_pixel_mult, pixel_angle,
                                  coverage_mode=coverage_mode)

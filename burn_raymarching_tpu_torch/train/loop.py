@@ -27,6 +27,16 @@ rounds, kept only when train-view PSNR improves), ``refine_geometry``
 stage guard (``_run_guarded``: a stage or a density-control boundary that
 costs PSNR is re-rolled) and residual-attribution splitting
 (train/residual.py).
+
+Subclass hooks (parallel/distributed.DistributedTrainer overrides them):
+``_bucket`` (slot count for n live primitives), ``_place`` / ``_gather``
+(the full padded table to this rank's shard and back), ``_init_t_cache``,
+``_prepare_stage_params`` (row order at stage start), ``_stage_generator``
+(the stage's sampling generator), ``_prefill_rays`` (the pixels this rank
+prefills), ``_culled_march`` (the detached culled march for a tile batch),
+``_global_dataset`` (the whole dataset, for residual scoring and
+refinement), ``_build_cluster_table`` and ``_warm_gate``; ``_io`` gates the
+file writes (scene.json, previews, checkpoints, metrics).
 """
 
 from __future__ import annotations
@@ -74,7 +84,6 @@ from burn_raymarching_tpu_torch.ops.culling import (
     PrimitiveClusters,
     build_clusters,
 )
-from burn_raymarching_tpu_torch.render.culled import culled_march_normals_xla
 from burn_raymarching_tpu_torch.render.preview import CullRender, render_tiled
 from burn_raymarching_tpu_torch.train.density import prune_and_split
 from burn_raymarching_tpu_torch.train.evaluate import evaluate_views
@@ -93,6 +102,7 @@ from burn_raymarching_tpu_torch.train.optimizer import (
     set_group_lrs,
 )
 from burn_raymarching_tpu_torch.train.step_body import (
+    culled_march_backend,
     culled_tables,
     lr_scale_tree,
     make_device_step,
@@ -155,6 +165,10 @@ def generator_from_key(key: np.ndarray, device: torch.device
 
 
 class Trainer:
+    # Whether this process writes files (a sharded trainer sets it on one
+    # rank only).
+    _io = True
+
     def __init__(self, cfg: TrainConfig, dataset: RayDataset,
                  log: Callable[[str], None] = print):
         # Fail at construction, not after a trained stage.
@@ -240,12 +254,56 @@ class Trainer:
         # decided, in order: one dict per event, keyed by "kind" ("polish",
         # "refine", "density", "guard"). Callers read this, not the log.
         self.events: list[dict] = []
-        self.metrics = MetricsLogger(cfg.metrics_jsonl)
+        self.metrics = MetricsLogger(cfg.metrics_jsonl if self._io else None)
         self.t_cache = None
         if self.warm:
-            self.t_cache = torch.zeros((dataset.num_total_pixels,),
-                                       dtype=torch.float32,
-                                       device=self.device)
+            self.t_cache = self._init_t_cache()
+
+    def _init_t_cache(self) -> torch.Tensor:
+        return torch.zeros((self.dataset.num_total_pixels,),
+                           dtype=torch.float32, device=self.device)
+
+    def _bucket(self, n: int) -> int:
+        """Padded primitive-slot count for n live primitives. Subclasses add
+        layout quanta (even model shards, whole cluster groups)."""
+        return bucket_size(n)
+
+    def _place(self, padded: SceneParams, mask: torch.Tensor
+               ) -> tuple[SceneParams, torch.Tensor]:
+        """The freshly padded table as this process trains it (all of it
+        here; a model-sharded trainer keeps its shard's rows)."""
+        return padded, mask
+
+    def _gather(self, padded: SceneParams, mask: torch.Tensor
+                ) -> tuple[SceneParams, torch.Tensor]:
+        """Inverse of ``_place``: the whole padded table after a stage."""
+        return padded, mask
+
+    def _prepare_stage_params(self, params: SceneParams) -> SceneParams:
+        """Row order at stage start (unchanged here; the sharded trainer
+        Morton-sorts the rows so that consecutive cluster groups and the
+        model shards are spatially coherent). A scene is a set, so any
+        order is semantics-free; run() calls this before snapshotting the
+        stage-start centers that density control diffs against."""
+        return params
+
+    def _stage_generator(self, key: np.ndarray) -> torch.Generator:
+        """The sampling generator of a stage (or polish round) from its
+        key."""
+        return generator_from_key(key, self.device)
+
+    def _prefill_rays(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The rays whose t the cache holds (all of them here)."""
+        return self.dataset.rays_o, self.dataset.rays_d
+
+    def _global_dataset(self) -> RayDataset:
+        """The whole dataset: residual scoring and refinement read every
+        pixel."""
+        return self.dataset
+
+    def _culled_march(self, b_t: int) -> Callable:
+        """The detached culled march for a batch of ``b_t`` tiles."""
+        return culled_march_backend(self.culled_march_normal_fn, b_t)
 
     def _warm_gate(self) -> bool:
         """Warm start needs a march that takes t_init: the culled path
@@ -348,7 +406,8 @@ class Trainer:
         to pin the anneals past the schedule end.
         """
         cfg = self.cfg
-        padded, mask = pad_params(params, bucket_size(params.n))
+        padded, mask = self._place(*pad_params(params,
+                                               self._bucket(params.n)))
         opt = make_optimizer(cfg, padded)
         ds = self.dataset
         steps = num_steps if num_steps is not None else cfg.steps_per_stage
@@ -387,7 +446,7 @@ class Trainer:
                 self.metrics.log(stage=stage, step=step, loss=lv,
                                  smooth_k=round(smooth_k, 2),
                                  n_primitives=n_live, rays_per_s=round(rate))
-        return padded, mask, loss
+        return (*self._gather(padded, mask), loss)
 
     def _load_views(self, cameras=None, targets=None):
         """(cameras, per-view linear targets) of the training views."""
@@ -440,8 +499,8 @@ class Trainer:
         for r in range(rounds):
             key, sub = split_key(key)
             cand, cand_mask, _ = self.run_stage(
-                unpad_params(padded, n), cfg.stages - 1,
-                generator_from_key(sub, self.device),
+                self._prepare_stage_params(unpad_params(padded, n)),
+                cfg.stages - 1, self._stage_generator(sub),
                 step_offset=cfg.steps_per_stage)
             cand_psnr = self.views_psnr(cand, cand_mask, cameras, targets)
             kept = cand_psnr > best_psnr
@@ -453,7 +512,7 @@ class Trainer:
                      f"===")
             if kept:
                 best_psnr, padded, mask = cand_psnr, cand, cand_mask
-        if export:
+        if export and self._io:
             export_scene_json(padded, cfg.scene_json,
                               mask=mask.cpu().numpy())
             self.log(f"  => Saved polished scene to {cfg.scene_json} "
@@ -510,15 +569,15 @@ class Trainer:
         for r in range(rounds):
             key, sub = split_key(key)
             batches = sample_fg_tile_batches(
-                self.dataset, tiles=tiles, seed=cfg.seed + 7919 * (r + 1),
-                tile=cfg.cull_tile)
+                self._global_dataset(), tiles=tiles,
+                seed=cfg.seed + 7919 * (r + 1), tile=cfg.cull_tile)
             select_probs = None
             if proposal_bias == "residual":
                 # Concentrate proposals on the primitives carrying the
                 # residual error (recomputed per round: geometry moves).
                 select_probs = primitive_residual_scores(
-                    padded, mask, self.dataset, cfg, cfg.max_smooth_k,
-                    kern=kern)
+                    padded, mask, self._global_dataset(), cfg,
+                    cfg.max_smooth_k, kern=kern)
             cand, stats = geometry_refine(
                 padded, mask, batches, cfg, kern=kern, proposals=proposals,
                 phases=phases, frac=frac, sigma_c=sigma_c, sigma_r=sigma_r,
@@ -547,7 +606,7 @@ class Trainer:
                      f"proposals, {'kept' if kept else 'reverted'}) ===")
             if kept:
                 best_psnr, padded = cand_psnr, cand
-        if export:
+        if export and self._io:
             export_scene_json(padded, cfg.scene_json,
                               mask=mask.cpu().numpy())
             self.log(f"  => Saved refined scene to {cfg.scene_json} "
@@ -561,11 +620,11 @@ class Trainer:
         training step then marches only cfg.warm_steps from the cached
         roots."""
         cfg = self.cfg
-        ds = self.dataset
+        rays_o, rays_d = self._prefill_rays()
         centers_p, _, radii_p, _, _ = activate(padded)
-        for start in range(0, ds.num_total_pixels, cfg.batch_size):
-            ro = ds.rays_o[start:start + cfg.batch_size].contiguous()
-            rd = ds.rays_d[start:start + cfg.batch_size].contiguous()
+        for start in range(0, rays_o.shape[0], cfg.batch_size):
+            ro = rays_o[start:start + cfg.batch_size].contiguous()
+            rd = rays_d[start:start + cfg.batch_size].contiguous()
             if cfg.use_culling:
                 t_flat = self._culled_cold_march(ro, rd, centers_p, radii_p,
                                                  mask, smooth_k)
@@ -589,10 +648,10 @@ class Trainer:
         _, _, cs, rs, qs = culled_tables(cfg, ro, rd, centers_p, radii_p,
                                          smooth_k, mask)
         b = ro.shape[0] // tile
-        kern = self.culled_march_normal_fn or culled_march_normals_xla
-        t, _ = kern(ro.reshape(b, tile, 3), rd.reshape(b, tile, 3), cs, rs,
-                    qs, smooth_k, num_steps=cfg.render.march_steps,
-                    normal_eps=cfg.render.normal_eps)
+        t, _ = self._culled_march(b)(
+            ro.reshape(b, tile, 3), rd.reshape(b, tile, 3), cs, rs, qs,
+            smooth_k, num_steps=cfg.render.march_steps,
+            normal_eps=cfg.render.normal_eps)
         return t.reshape(-1)[:n]
 
     def _cull_render(self) -> Optional[CullRender]:
@@ -606,6 +665,8 @@ class Trainer:
 
     def save_preview(self, padded: SceneParams, mask: torch.Tensor,
                      path: str) -> None:
+        if not self._io:
+            return
         cfg = self.cfg
         ro, rd = create_camera_rays(cfg.width, cfg.height, [0.0, 0.0, -2.5],
                                     [0.0, 0.0, 0.0], 50.0,
@@ -699,15 +760,14 @@ class Trainer:
             for attempt in range(cfg.stage_guard_retries + 1):
                 if attempt > 0 and prev is not None:
                     entry, entry_psnr = self._guarded_boundary(prev, attempt)
-                params_s = entry
+                params_s = self._prepare_stage_params(entry)
                 init_centers = params_s.centers.detach().cpu().numpy()
                 if entry_psnr is None:
                     entry_psnr = self._guard_psnr(*pad_params(
                         params_s, bucket_size(params_s.n)))
                 padded_c, mask_c, _ = self.run_stage(
                     params_s, stage,
-                    generator_from_key(fold_key(key_stage, attempt),
-                                       self.device))
+                    self._stage_generator(fold_key(key_stage, attempt)))
                 psnr_post = self._guard_psnr(padded_c, mask_c)
                 self.metrics.log(stage=stage,
                                  guard_psnr_pre=round(entry_psnr, 3),
@@ -753,7 +813,9 @@ class Trainer:
                       n: int) -> None:
         cfg = self.cfg
         self.log("Final Stage Complete! Exporting results...")
-        export_scene_json(padded, cfg.scene_json, mask=mask.cpu().numpy())
+        if self._io:
+            export_scene_json(padded, cfg.scene_json,
+                              mask=mask.cpu().numpy())
         self.log(f"  => Saved to {cfg.scene_json} (N = {n})")
         self.save_preview(padded, mask,
                           os.path.join(cfg.steps_dir, "final_1.png"))
@@ -767,7 +829,7 @@ class Trainer:
                         key: np.ndarray) -> None:
         """Stage-boundary checkpoint of the RAW next-generation params."""
         path = self._ckpt_path(stage)
-        if not path:
+        if not path or not self._io:
             return
         os.makedirs(os.path.dirname(path), exist_ok=True)
         np.savez(path, stage=stage, key=np.asarray(key),
@@ -808,10 +870,11 @@ class Trainer:
         for stage in range(start_stage, cfg.stages):
             self.log(f"=== Stage {stage + 1}/{cfg.stages} (N = {params.n}) "
                      "===")
+            params = self._prepare_stage_params(params)
             stage_init_centers = params.centers.detach().cpu().numpy()
             key, sub = split_key(key)
-            padded, mask, _ = self.run_stage(
-                params, stage, generator_from_key(sub, self.device))
+            padded, mask, _ = self.run_stage(params, stage,
+                                             self._stage_generator(sub))
             if stage == cfg.stages - 1:
                 self._export_final(padded, mask, params.n)
                 break
@@ -838,7 +901,7 @@ class Trainer:
             # the model the stage trained.
             k_end = anneal_for_step(cfg, stage, cfg.steps_per_stage)[1]
             split_scores = primitive_residual_scores(
-                padded, mask, self.dataset,
+                padded, mask, self._global_dataset(),
                 self._stage_cfg(self._render_overrides_for_stage(stage)),
                 k_end, kern=self.culled_march_normal_fn)[:n_live]
         centers, colors, radii, stats = prune_and_split(

@@ -12,6 +12,15 @@ primitives" divides by the number of valid primitives.
      or with ``repulsion_clusters`` the two-level cluster approximation
      (``cluster_repulsion``, the plain version of the K4 kernel in
      ops/cuda/repulsion_kernel.py).
+
+With ``model_axis`` (a parallel.collectives.Axis, primitives sharded over
+the ranks) every mean over primitives sums its shard terms over the axis
+and divides by the summed count; the exact repulsion sums each shard's
+[M_local, M] row block against the gathered centers (the diagonal at the
+shard's offset); the cluster repulsion keeps its near field within the
+shard's own clusters and takes every other cluster, remote ones included,
+as a monopole through the gathered centroids and counts. The K4 kernel
+sees a whole cluster table, so the sharded loss uses the plain version.
 """
 
 from __future__ import annotations
@@ -23,6 +32,12 @@ from torch.nn import functional as F
 
 from burn_raymarching_tpu_torch.config import LossConfig
 from burn_raymarching_tpu_torch.models.scene import SceneParams
+from burn_raymarching_tpu_torch.parallel.collectives import (
+    Axis,
+    all_gather,
+    psum,
+    pvary,
+)
 
 
 class RepulsionStatic(NamedTuple):
@@ -96,17 +111,23 @@ def build_repulsion_static(centers: torch.Tensor, clusters,
 def cluster_repulsion(centers: torch.Tensor, clusters,
                       mask: Optional[torch.Tensor], n_valid,
                       near_clusters: int = 8, far_field: str = "member",
-                      static: Optional[RepulsionStatic] = None
-                      ) -> torch.Tensor:
+                      static: Optional[RepulsionStatic] = None,
+                      model_axis: Optional[Axis] = None) -> torch.Tensor:
     """Barnes-Hut approximation of the pairwise repulsion mean (plain
     version of K4): exact 1/(d + 100·I + 1e-6) over pairs whose clusters are
     among the ``near_clusters`` nearest by centroid (own included), centroid
     monopoles for the rest. ``far_field`` "member" evaluates every member
     against every far centroid ([M, C] pairs); "monopole" collapses both
     sides to centroids ([C, C] pairs). Gradients flow through member
-    positions and the centroids. ``static`` supplies the frozen prep."""
+    positions and the centroids. ``static`` supplies the frozen prep (one
+    whole table only). With ``model_axis`` the arguments are this rank's
+    shard (member ids in its own row space) and the result is replicated
+    (module docstring)."""
     member_idx = clusters.member_idx
     c_count, g = member_idx.shape
+    if static is not None and model_axis is not None:
+        raise ValueError("static repulsion tables are single-table only "
+                         "(the sharded loss computes its prep in-step)")
     if static is not None:
         w, counts, nb = static.w, static.counts, static.nb
         nbm_flat, nb_w, far_w_rows = static.nbm_idx, static.nb_w, static.far_w
@@ -131,28 +152,52 @@ def cluster_repulsion(centers: torch.Tensor, clusters,
     inv = 1.0 / (dist + self_pair.to(dist.dtype) * 100.0 + 1e-6)
     s_near = torch.sum(inv * w[:, :, None] * nb_w[:, None, :])
 
+    # Far field: monopoles of every cluster but the W near ones. Under a
+    # sharded M the remote shards' centroids arrive gathered and are always
+    # monopoles.
+    cents_all = centroids
+    if model_axis is not None:
+        cents_all = pvary(all_gather(centroids, model_axis), model_axis)
+        counts_all = all_gather(counts.detach(), model_axis)
+        near_hot = torch.sum(F.one_hot(
+            nb + model_axis.index * c_count, cents_all.shape[0]).to(w.dtype),
+            dim=1)
+        far_w_rows = (1.0 - near_hot) * counts_all[None, :]
+    c_all = cents_all.shape[0]
     if far_field == "monopole":
-        ccd2 = cd2 if cd2 is not None else centroid_d2(centroids, counts)
+        if model_axis is not None:
+            ccd2 = torch.sum((centroids[:, None, :] - cents_all[None, :, :])
+                             ** 2, dim=2)
+        else:
+            ccd2 = cd2 if cd2 is not None else centroid_d2(centroids, counts)
         inv_cc = 1.0 / (torch.sqrt(torch.clamp(ccd2, min=1e-6)) + 1e-6)
         s_far = torch.sum(far_w_rows * counts[:, None] * inv_cc)
     else:
-        diff = cs.reshape(c_count * g, 1, 3) - centroids[None, :, :]
+        diff = cs.reshape(c_count * g, 1, 3) - cents_all[None, :, :]
         dist_f = torch.sqrt(torch.clamp(torch.sum(diff * diff, dim=2),
-                                        min=1e-6))           # [C·G, C]
+                                        min=1e-6))           # [C·G, C_all]
         inv_f = 1.0 / (dist_f + 1e-6)
-        far_w = far_w_rows[:, None, :].expand(c_count, g, c_count).reshape(
-            c_count * g, c_count)
+        far_w = far_w_rows[:, None, :].expand(c_count, g, c_all).reshape(
+            c_count * g, c_all)
         s_far = torch.sum(inv_f * w.reshape(-1)[:, None] * far_w)
-    return (s_near + s_far) / (n_valid * n_valid)
+    s = s_near + s_far
+    if model_axis is not None:
+        s = psum(s, model_axis)
+    return s / (n_valid * n_valid)
 
 
 def _masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor],
-                 n_valid) -> torch.Tensor:
-    """Mean over valid primitive slots; plain mean when unmasked."""
-    if mask is None:
+                 n_valid, model_axis: Optional[Axis] = None) -> torch.Tensor:
+    """Mean over valid primitive slots; plain mean when unmasked. With
+    ``model_axis`` x/mask are one shard: the sum is summed over the axis
+    and ``n_valid`` is already the global count."""
+    if mask is None and model_axis is None:
         return torch.mean(x)
-    m = mask.to(x.dtype).reshape((-1,) + (1,) * (x.dim() - 1))
-    return torch.sum(x * m) / (n_valid * (x.numel() // x.shape[0]))
+    s = torch.sum(x if mask is None else x * mask.to(x.dtype).reshape(
+        (-1,) + (1,) * (x.dim() - 1)))
+    if model_axis is not None:
+        s = psum(s, model_axis)
+    return s / (n_valid * (x.numel() // x.shape[0]))
 
 
 def compute_loss(params: SceneParams, output: torch.Tensor,
@@ -160,13 +205,16 @@ def compute_loss(params: SceneParams, output: torch.Tensor,
                  mask: Optional[torch.Tensor] = None,
                  cfg: LossConfig = LossConfig(), repulsion_clusters=None,
                  repulsion_fn=None,
-                 repulsion_static: Optional[RepulsionStatic] = None
-                 ) -> torch.Tensor:
+                 repulsion_static: Optional[RepulsionStatic] = None,
+                 model_axis: Optional[Axis] = None) -> torch.Tensor:
     """Scalar training loss. ``repulsion_clusters`` (PrimitiveClusters)
     switches term 5 to the two-level repulsion, computed by
     ``repulsion_fn`` (the K4 wrapper) when given and by
     ``cluster_repulsion`` otherwise; ``repulsion_static`` is the frozen
-    prep."""
+    prep. With ``model_axis`` the primitive rows of ``params``, ``mask``
+    and the clusters are this rank's shard, ``output``/``target`` are
+    replicated, and so is the loss (module docstring); the K4 kernel and
+    the frozen prep are single-table only and are not used then."""
     # --- 1. Weighted L1 reconstruction ---
     abs_diff = torch.abs(output - target)
     target_sum = torch.sum(target, dim=1, keepdim=True)
@@ -184,19 +232,23 @@ def compute_loss(params: SceneParams, output: torch.Tensor,
 
     n_valid = (torch.sum(mask.to(output.dtype)) if mask is not None
                else float(params.centers.shape[0]))
+    ax = model_axis
+    if ax is not None:
+        n_valid = psum(torch.as_tensor(n_valid, dtype=output.dtype,
+                                       device=output.device), ax)
 
     # --- 2. Radius penalties (no +0.01 here) ---
     radii = F.softplus(params.radii)
-    radius_l1 = _masked_mean(torch.abs(radii), mask, n_valid)
+    radius_l1 = _masked_mean(torch.abs(radii), mask, n_valid, ax)
     radius_large = _masked_mean(
         torch.where(radii > 1.0, radii * radii, torch.zeros_like(radii)),
-        mask, n_valid)
+        mask, n_valid, ax)
     loss = (loss + radius_large * cfg.radius_large_coeff
             + radius_l1 * cfg.radius_l1_coeff)
 
     # --- 3. Origin attraction ---
     center_sq = params.centers * params.centers
-    loss = loss + _masked_mean(center_sq, mask, n_valid) * cfg.center_coeff
+    loss = loss + _masked_mean(center_sq, mask, n_valid, ax) * cfg.center_coeff
 
     # --- 4. Camera-proximity barrier ---
     dist_from_origin = torch.sqrt(
@@ -205,25 +257,48 @@ def compute_loss(params: SceneParams, output: torch.Tensor,
     excess = max_reach - cfg.proximity_bound
     proximity = torch.where(max_reach > cfg.proximity_bound, excess * excess,
                             torch.zeros_like(excess))
-    loss = loss + _masked_mean(proximity, mask, n_valid) * cfg.proximity_coeff
+    loss = (loss + _masked_mean(proximity, mask, n_valid, ax)
+            * cfg.proximity_coeff)
 
     # --- 5. Pairwise repulsion ---
     if repulsion_clusters is not None:
-        fn = repulsion_fn if repulsion_fn is not None else cluster_repulsion
-        repulsion = fn(params.centers, repulsion_clusters, mask, n_valid,
-                       far_field=cfg.repulsion_far_field,
-                       static=repulsion_static)
+        if repulsion_fn is not None and ax is None:
+            repulsion = repulsion_fn(params.centers, repulsion_clusters, mask,
+                                     n_valid,
+                                     far_field=cfg.repulsion_far_field,
+                                     static=repulsion_static)
+        else:
+            repulsion = cluster_repulsion(
+                params.centers, repulsion_clusters, mask, n_valid,
+                far_field=cfg.repulsion_far_field, model_axis=ax,
+                static=repulsion_static if ax is None else None)
         return loss + repulsion * cfg.repulsion_coeff
+    # Sharded: this rank's [M_local, M] row block against the gathered
+    # centers, the diagonal at the shard's row offset.
     c = params.centers
+    c_all, mask_all, eye = c, mask, None
+    if ax is not None:
+        c_all = pvary(all_gather(c, ax), ax)
+        mask_all = None if mask is None else all_gather(mask, ax)
+        rows = (torch.arange(c.shape[0], device=c.device)
+                + ax.index * c.shape[0])
+        eye = (rows[:, None] == torch.arange(c_all.shape[0],
+                                             device=c.device)[None, :]
+               ).to(c.dtype)
+    else:
+        eye = torch.eye(c.shape[0], dtype=c.dtype, device=c.device)
     c_sq = torch.sum(c * c, dim=1, keepdim=True)              # [M, 1]
-    dist_sq = c_sq + c_sq.T - 2.0 * (c @ c.T)
+    ca_sq = c_sq.T if ax is None else torch.sum(c_all * c_all, dim=1)[None, :]
+    dist_sq = c_sq + ca_sq - 2.0 * (c @ c_all.T)
     dist = torch.sqrt(torch.clamp(dist_sq, min=1e-6))
-    eye = torch.eye(c.shape[0], dtype=c.dtype, device=c.device)
     inv = 1.0 / (dist + eye * 100.0 + 1e-6)
-    if mask is None:
+    if mask is None and ax is None:
         repulsion = torch.mean(inv)
     else:
-        mf = mask.to(c.dtype)
-        repulsion = torch.sum(inv * (mf[:, None] * mf[None, :])) / (
-            n_valid * n_valid)
+        s = (torch.sum(inv) if mask is None else torch.sum(
+            inv * (mask.to(c.dtype)[:, None]
+                   * mask_all.to(c.dtype)[None, :])))
+        if ax is not None:
+            s = psum(s, ax)
+        repulsion = s / (n_valid * n_valid)
     return loss + repulsion * cfg.repulsion_coeff

@@ -1,5 +1,5 @@
 """The per-step training computation (port of
-burn_raymarching_tpu/train/step_body.py, single-device branches).
+burn_raymarching_tpu/train/step_body.py).
 
 One step: sample a batch → forward → loss → autograd. Three forwards:
 
@@ -15,10 +15,29 @@ One step: sample a batch → forward → loss → autograd. Three forwards:
 
 The anneal schedule is computed on the host in float32, as the JAX package
 computes it in-graph, so no step reads anything back from the device.
+
+The axes (parallel/DistributedTrainer) are the only difference between the
+single-device and the sharded step:
+
+* ``data_axis`` — every rank samples its batch from its own pixel shard
+  (with the t cache of that shard; its generator is folded with the data
+  index where it is made), and the gradients and the loss are averaged
+  over the axis after the backward, in one all-reduce;
+* ``model_axis`` — the primitive rows are sharded: selection is
+  shard-local (each rank's per-tile top-K over its own rows), the soft-min
+  and softmax combine shards (render/, ops/sdf.py), the cluster table is
+  in the shard's own row ids, the loss is the sharded plain version, and
+  the detached culled march runs K3 on the union table
+  (``sharded_culled_kernel_march``) when the tile batch splits evenly over
+  the axis. K1, K2 and K4 see whole tables and are not used under it.
+  Every rank back-propagates its own copy of the replicated loss; the
+  collectives carry shard_map's transposes, so the gradient of a replicated
+  leaf (light, ambient) is already the total on every rank.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -39,6 +58,12 @@ from burn_raymarching_tpu_torch.ops.culling import (
     select_tile_primitives,
     select_tile_primitives_hier,
     tile_cones,
+)
+from burn_raymarching_tpu_torch.parallel.collectives import (
+    Axis,
+    all_gather,
+    all_to_all,
+    mean_grads,
 )
 from burn_raymarching_tpu_torch.render.culled import (
     culled_march_normals_xla,
@@ -122,12 +147,14 @@ def expand_subpixel(ro: torch.Tensor, rd: torch.Tensor, ss: int,
     return roj.reshape(-1, 3), rdj.reshape(-1, 3)
 
 
-def uses_fused_shade(cfg: TrainConfig, march_normal_fn) -> bool:
+def uses_fused_shade(cfg: TrainConfig, march_normal_fn,
+                     model_axis: Optional[Axis] = None) -> bool:
     """The K2 kernel hard-codes the reference compositor and dense tables:
-    culled runs and other render configs take the plain tail."""
+    culled runs, M-sharded runs and other render configs take the plain
+    tail."""
     rc = cfg.render
     return (march_normal_fn is not None and cfg.use_fused_shade
-            and not cfg.use_culling
+            and not cfg.use_culling and model_axis is None
             and rc.mask_pixel_mult == 0.0 and rc.coverage_mode == "sigmoid"
             and (rc.softmax_sharpness, rc.mask_sharpness) == (10.0, 15.0))
 
@@ -170,10 +197,60 @@ def culled_tables(cfg: TrainConfig, ro: torch.Tensor, rd: torch.Tensor,
     return idx, valid, cs, rs, qs
 
 
+def sharded_culled_kernel_march(
+        kern: Callable, model_axis: Axis,
+        ro3: torch.Tensor, rd3: torch.Tensor, cs: torch.Tensor,
+        rs: torch.Tensor, qs: torch.Tensor, smooth_k, *, num_steps: int,
+        normal_eps: float, t_init: Optional[torch.Tensor] = None):
+    """The culled march under an M-sharded table, through the single-table
+    kernel ``kern`` (K3) → replicated (t [B,T,1], normal [B,T,3]).
+
+    ro3, rd3 [B, T, 3] are the tile batch (the same on every rank of the
+    axis); cs [B, K, 3], rs, qs [B, K] this shard's per-tile top-K tables.
+    One all_to_all turns them into this rank's tile slice of the UNION
+    table, [B/S, S·K]: the K-blocks it receives all describe its own tiles.
+    The rank marches its B/S tiles against the union with ``kern`` (no
+    collective inside the loop, the same (B/S)·(S·K) work per rank) and one
+    all_gather returns the detached (t, normal). The union soft-min sums the
+    same table entries as the pmax/psum soft-min (invalid slots carry zero
+    weight), so the two agree up to summation order. B must divide by S, the
+    axis size."""
+    b = ro3.shape[0]
+    bs = b // model_axis.size
+    cs_u, rs_u, qs_u = (all_to_all(x, model_axis, split_dim=0, concat_dim=1)
+                        for x in (cs, rs, qs))
+    lo = model_axis.index * bs
+
+    def own(x):
+        return x[lo:lo + bs].contiguous()
+
+    with torch.no_grad():
+        t_loc, n_loc = kern(own(ro3), own(rd3), cs_u, rs_u, qs_u, smooth_k,
+                            num_steps=num_steps, normal_eps=normal_eps,
+                            t_init=None if t_init is None else own(t_init))
+        return (all_gather(t_loc, model_axis, 0),
+                all_gather(n_loc, model_axis, 0))
+
+
+def culled_march_backend(culled_march_fn: Optional[Callable], b_t: int,
+                         model_axis: Optional[Axis] = None) -> Callable:
+    """The detached culled march for a batch of ``b_t`` tiles: the kernel
+    directly on a single table; under an M-sharded table the union-table
+    wrapper around it when the tiles split evenly over the axis; else the
+    plain march, whose soft-min combines shards at every step."""
+    if culled_march_fn is not None and model_axis is None:
+        return culled_march_fn
+    if culled_march_fn is not None and b_t % model_axis.size == 0:
+        return functools.partial(sharded_culled_kernel_march,
+                                 culled_march_fn, model_axis)
+    return functools.partial(culled_march_normals_xla, model_axis=model_axis)
+
+
 def make_device_step(cfg: TrainConfig, *, march_normal_fn: Optional[Callable],
                      batch: int, culled_march_fn: Optional[Callable] = None,
                      repulsion_fn: Optional[Callable] = None,
-                     warm: bool = False) -> Callable:
+                     warm: bool = False, data_axis: Optional[Axis] = None,
+                     model_axis: Optional[Axis] = None) -> Callable:
     """Build device_step(params, generator, stage, step, mask, packed,
     fg_indices, n_fg, idx=None, t_cache=None, clusters=None,
     rep_static=None) → (loss tensor, lr).
@@ -186,11 +263,16 @@ def make_device_step(cfg: TrainConfig, *, march_normal_fn: Optional[Callable],
     feeds hierarchical culling and the cluster repulsion; ``rep_static`` is
     the repulsion's frozen prep. ``culled_march_fn`` (K3) and
     ``repulsion_fn`` (K4) are the kernel wrappers; None takes the plain
-    versions.
+    versions. ``batch`` is this rank's batch; ``data_axis`` / ``model_axis``
+    as in the module docstring: all tensor
+    arguments are then this rank's shards, and ``clusters`` is in the
+    shard's own row ids.
     """
     rc = cfg.render
-    fused = uses_fused_shade(cfg, march_normal_fn)
-    tile_march = culled_march_fn or culled_march_normals_xla
+    fused = uses_fused_shade(cfg, march_normal_fn, model_axis)
+    if model_axis is not None:
+        repulsion_fn = None
+    dense_warm = warm and march_normal_fn is not None and model_axis is None
     hier = cfg.use_culling and cfg.cull_hierarchical
     # Pixel-footprint supersampling (RenderConfig.supersample): batch/ss
     # unique pixels, each expanded into ss jittered sub-rays (the ray count
@@ -229,7 +311,7 @@ def make_device_step(cfg: TrainConfig, *, march_normal_fn: Optional[Callable],
 
         culled_pre = None
         t = normal = None
-        if cfg.use_culling or fused or (warm and march_normal_fn is not None):
+        if cfg.use_culling or fused or dense_warm:
             with torch.no_grad():
                 c_det, _, r_det, _, _ = activate(params)
                 t0 = None
@@ -244,6 +326,8 @@ def make_device_step(cfg: TrainConfig, *, march_normal_fn: Optional[Callable],
                         cfg, ro, rd, c_det, r_det, smooth_k, mask,
                         clusters if hier else None)
                     b_t = ro.shape[0] // cfg.cull_tile
+                    tile_march = culled_march_backend(
+                        culled_march_fn, b_t, model_axis)
                     t, normal = tile_march(
                         ro.reshape(b_t, cfg.cull_tile, 3),
                         rd.reshape(b_t, cfg.cull_tile, 3), cs, rs, qs,
@@ -274,7 +358,8 @@ def make_device_step(cfg: TrainConfig, *, march_normal_fn: Optional[Callable],
                 softmax_sharpness=rc.softmax_sharpness,
                 mask_sharpness=rc.mask_sharpness, normal_eps=rc.normal_eps,
                 precomputed=culled_pre, mask_pixel_mult=rc.mask_pixel_mult,
-                pixel_angle=rc.pixel_angle, coverage_mode=rc.coverage_mode)
+                pixel_angle=rc.pixel_angle, coverage_mode=rc.coverage_mode,
+                model_axis=model_axis)
         elif fused:
             out = shade_fused(ro, rd, t, normal, c_p, r_p, col_p, ld_p,
                               amb_p, smooth_k, mask=mask)
@@ -291,15 +376,21 @@ def make_device_step(cfg: TrainConfig, *, march_normal_fn: Optional[Callable],
                                 normal_eps=rc.normal_eps,
                                 mask_pixel_mult=rc.mask_pixel_mult,
                                 pixel_angle=rc.pixel_angle,
-                                coverage_mode=rc.coverage_mode)
+                                coverage_mode=rc.coverage_mode,
+                                model_axis=model_axis)
         if ss > 1:
             out = out.reshape(n_unique, ss, 3).mean(dim=1)
         loss = compute_loss(
             params, out, tgt, progress, mask=mask, cfg=cfg.loss,
             repulsion_clusters=clusters if cfg.cluster_repulsion else None,
-            repulsion_fn=repulsion_fn, repulsion_static=rep_static)
+            repulsion_fn=repulsion_fn,
+            repulsion_static=rep_static if model_axis is None else None,
+            model_axis=model_axis)
         params.zero_grad(set_to_none=True)
         loss.backward()
-        return loss.detach(), lr
+        loss = loss.detach()
+        if data_axis is not None:
+            loss = mean_grads(params.parameters(), data_axis, extra=loss)
+        return loss, lr
 
     return device_step

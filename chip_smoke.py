@@ -79,13 +79,41 @@ non-zero without the final result line:
  10. guard_c1    — train_cli at config-1 width for 2 x 100 steps with
                    --stage-guard, --ss-stages 4,1 and --polish 1: the
                    guard's PSNRs and retry counts; K1 and K2 must have been
-                   launched.
+                   launched;
+ 11. c5          — config 5 through tools/run_c5.py: the generator writes
+                   the 100-view 256² knot set (2,000 GT spheres); the
+                   recipe (51,200 prior-seeded spheres, budget 4,096, tile
+                   sampling, warm start, cluster repulsion at C = 800)
+                   trains 2 x 50 steps on its first 20 views, with its
+                   ceiling, init and trained PSNR (K1, K3 and K4 must have
+                   been launched); the step's wall and device-busy time and
+                   top device ops on the scene it trained; K3 at config 5's
+                   shape (32 tiles x 512 rays, K = 4,096) against its plain
+                   version; runs/c5_stack3/scene_c5.json through
+                   --from-scene on all 100 views, within 0.1 dB of the
+                   28.51 dB its record holds;
+ 12. distributed — DistributedTrainer on a 1 x 1 mesh over NCCL: a
+                   one-stage cut of config 4 against the plain Trainer
+                   (the JAX package's tolerance for that comparison; K3
+                   must have been launched), and 60 dense config-1 steps
+                   with --turbo (K1 and K2) bitwise against the Trainer
+                   without warm start; then two model ranks on the one card
+                   over gloo (NCCL takes one GPU per rank): each selects
+                   per-tile top-1,024 tables over its half of the rows and
+                   marches through the union-table wrapper, one K3 launch
+                   on [B/2, 2,048] tables; held against one K3 launch on
+                   the same union table (rtol 2e-5, normals 1e-3, the JAX
+                   package's sharding tests) and K3 at that shape against
+                   its plain version.
 K1's early exit (``early_exit=True``; no path sets it) is held at every
 table width of phase 3 against the fixed-count launch, against its plain
 version, and timed beside the fixed-count launch.
 The line before the last is {"kernels": [...]}: per kernel its launches on
-the training path (``launches``) and on the quality path that runs it
-(``launches_quality``: phase 9 for K3 and K4, phase 10 for K1 and K2), error, ``ms`` (the wrapper call between CUDA events),
+the training path (``launches``), on the quality path that runs it
+(``launches_quality``: phase 9 for K3 and K4, phase 10 for K1 and K2), on
+the config-5 path (``launches_c5``) and on the distributed paths
+(``launches_distributed``), error, ``ms`` (the wrapper call between CUDA
+events),
 ``device_ms`` (the same call replayed from a CUDA graph), the plain
 version's time, ``bound_ms`` (the least time the card could take, see
 ``bound``) and ``library_ms`` (one PyTorch call computing the same function,
@@ -147,6 +175,18 @@ HEADLINE_TOL_DB = 0.1
 # The acceptance loss's shape: tiles per batch, and the slice of them that
 # K3 is held against its plain version on.
 REFINE_TILES, REFINE_CHECK_TILES = 512, 16
+# Config 5 (runs/c5_r2; tools/run_c5.py's defaults): 100 views at 256²,
+# 2,000 GT spheres, 51,200 prior-seeded spheres, per-tile budget 4,096.
+# The smoke run trains on the first C5_TRAIN_VIEWS views for 2 x C5_STEPS
+# steps; the committed scene below is read on all 100 views and must land
+# within HEADLINE_TOL_DB of the PSNR its record holds
+# (runs/c5_stack3/results.json "trained").
+C5_VIEWS, C5_SIZE, C5_GT_N, C5_INIT_N, C5_BUDGET = 100, 256, 2000, 51200, 4096
+C5_TRAIN_VIEWS, C5_STEPS = 20, 50
+C5_SCENE = os.path.join(ROOT, "runs", "c5_stack3", "scene_c5.json")
+C5_SCENE_PSNR_DB = 28.5149576006399
+# Steps of the 1 x 1 DistributedTrainer runs (one stage each).
+DIST_STEPS = 60
 
 
 def events_of(events: list, kind: str) -> list:
@@ -657,9 +697,9 @@ def k2_case(torch, dev, ro, rd, live: int, slots: int, k: float,
     return results
 
 
-def knot_cloud(torch, dev, n: int):
+def knot_cloud(torch, dev, n: int, gt_n: int = C4_GT_N):
     """The prior-seeded cloud init of ``n`` spheres around the generator's
-    400-sphere knot (points.json, jitter 0.02), padded to its bucket →
+    ``gt_n``-sphere knot (points.json, jitter 0.02), padded to its bucket →
     (padded, mask, centers, radii) with the last two activated and
     detached."""
     from burn_raymarching_tpu_torch.models.scene import (
@@ -670,7 +710,7 @@ def knot_cloud(torch, dev, n: int):
     from burn_raymarching_tpu_torch.tools.generate import knot_scene
     from burn_raymarching_tpu_torch.utils import bucket_size
 
-    pts, _, _ = knot_scene(C4_GT_N)
+    pts, _, _ = knot_scene(gt_n)
     params = init_scene_params_cloud(n, seed=0, points=pts, jitter=0.02,
                                      device=dev)
     padded, mask = pad_params(params, bucket_size(n))
@@ -678,10 +718,12 @@ def knot_cloud(torch, dev, n: int):
     return padded, mask, c.detach(), r.detach()
 
 
-def c4_tiles(torch, dev, c, r, mask):
-    """32 tile-coherent ray tiles of the config-4 rig and their top-K
-    tables: Morton tiles of 4 random views, selected against the whole
-    primitive table, 32 picked among those whose selection is not empty."""
+def c4_tiles(torch, dev, c, r, mask, size: int = C4_SIZE,
+             views: int = C4_VIEWS, budget: int = C4_BUDGET):
+    """32 tile-coherent ray tiles of the config-4 rig (or another knot rig
+    of ``views`` views at ``size``²) and their top-K tables: Morton tiles
+    of 4 random views, selected against the whole primitive table, 32
+    picked among those whose selection is not empty."""
     import numpy as np
 
     from burn_raymarching_tpu_torch.data.camera import create_camera_rays
@@ -693,18 +735,18 @@ def c4_tiles(torch, dev, c, r, mask):
     from burn_raymarching_tpu_torch.utils import morton_permutation
 
     rng = np.random.default_rng(0)
-    perm = torch.as_tensor(morton_permutation(C4_SIZE, C4_SIZE), device=dev)
-    cams = ring_cameras(C4_VIEWS)
+    perm = torch.as_tensor(morton_permutation(size, size), device=dev)
+    cams = ring_cameras(views)
     ro_all, rd_all = [], []
-    for v in rng.choice(C4_VIEWS, 4, replace=False):
-        ro, rd = create_camera_rays(C4_SIZE, C4_SIZE, cams[v]["origin"],
+    for v in rng.choice(views, 4, replace=False):
+        ro, rd = create_camera_rays(size, size, cams[v]["origin"],
                                     cams[v]["target"], cams[v]["fov"],
                                     device=dev)
         ro_all.append(ro[perm])
         rd_all.append(rd[perm])
     ro, rd = torch.cat(ro_all), torch.cat(rd_all)
     idx, valid = select_tile_primitives(tile_cones(ro, rd, C4_TILE), c, r,
-                                        C4_K, C4_BUDGET, mask=mask)
+                                        C4_K, budget, mask=mask)
     live = torch.nonzero(valid.sum(dim=1) > 0)[:, 0].cpu().numpy()
     pick = torch.as_tensor(np.sort(rng.choice(live, C4_TILES,
                                               replace=False)), device=dev)
@@ -1047,61 +1089,17 @@ def step_rate(torch, trainer, final, mask, steps: int = 30,
     return steps * trainer.cfg.batch_size / (time.perf_counter() - t0)
 
 
-# The __global__ functions under csrc/, as a trace names them.
-HAND_KERNELS = ("march_shade_kernel", "march_pack_kernel",
-                "culled_march_kernel", "shade_pack_kernel",
-                "shade_fwd_kernel", "shade_bwd_kernel", "rep_fwd_kernel",
-                "rep_bwd_kernel")
-
-
 def device_profile(torch, trainer, final, mask, t_cache, steps: int = 10
                    ) -> dict:
-    """``profile_calls`` over ``steps`` steady training steps."""
+    """tools/bench_large.profile_calls (torch.profiler's device-busy time
+    per step and the top device ops) over ``steps`` steady training
+    steps."""
+    from burn_raymarching_tpu_torch.tools.bench_large import profile_calls
+
     one = step_runner(torch, trainer, final, mask, t_cache)
     for s in range(1, 4):
         one(s)
-    return profile_calls(torch, lambda i: one(4 + i), steps)
-
-
-def profile_calls(torch, one, steps: int) -> dict:
-    """torch.profiler over ``one(0)`` .. ``one(steps - 1)``, read from its
-    trace's device events (kernels, copies, memsets; not the annotation
-    spans that the trace also places on the device) → busy device time per
-    step (the union of their intervals), events per step, the five kernel
-    names with the most device time, and the device time of each
-    hand-written kernel (HAND_KERNELS) that ran."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for s in range(steps):
-            one(s)
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
-                    e.get("name", "")) for e in events
-                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
-                   and "dur" in e)
-    busy_us, end = 0.0, -math.inf
-    by_name: dict = {}
-    for start, stop, name in spans:
-        busy_us += max(0.0, stop - max(start, end))
-        end = max(end, stop)
-        by_name[name] = by_name.get(name, 0.0) + (stop - start)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    hand = {k: sum(d for name, d in by_name.items() if k in name)
-            for k in HAND_KERNELS}
-    return {"device_busy_ms_per_step": busy_us / 1000.0 / steps,
-            "device_events_per_step": len(spans) / steps,
-            "top_kernels_ms_per_step": [[k[:60], d / 1000.0 / steps]
-                                        for k, d in top],
-            "hand_kernels_ms_per_step": {k: d / 1000.0 / steps
-                                         for k, d in hand.items() if d > 0}}
+    return profile_calls(lambda i: one(4 + i), steps)
 
 
 def phase_generate_and_train(torch, tmp: str) -> dict:
@@ -1273,7 +1271,8 @@ def headline_argv(data: str, out: str) -> list:
     return ["--out", out, "--data", data, "--views", str(C4_VIEWS),
             "--size", str(C4_SIZE), "--gt-n", str(C4_GT_N),
             "--init-n", str(C4_INIT_N), "--cull-budget", str(C4_BUDGET),
-            "--stages", "5", "--steps", str(TRAIN_STEPS),
+            "--merge-cell", "0.04", "--stages", "5",
+            "--steps", str(TRAIN_STEPS),
             "--coverage", "gaussian", "--mask-sharp", "40",
             "--coverage-stages", "sigmoid,gaussian", "--skip-ceiling"]
 
@@ -1290,6 +1289,7 @@ def phase_refine_c4(torch, dev, tmp: str) -> tuple[dict, dict]:
     )
     from burn_raymarching_tpu_torch.models.scene import activate
     from burn_raymarching_tpu_torch.tools import run_c5, train_cli
+    from burn_raymarching_tpu_torch.tools.bench_large import profile_calls
     from burn_raymarching_tpu_torch.train import refine
     from burn_raymarching_tpu_torch.train.loop import Trainer, build_dataset
     from burn_raymarching_tpu_torch.train.residual import (
@@ -1363,8 +1363,9 @@ def phase_refine_c4(torch, dev, tmp: str) -> tuple[dict, dict]:
         "--out", out_t, "--data", data, "--views", str(C4_VIEWS),
         "--size", str(C4_SIZE), "--gt-n", str(C4_GT_N),
         "--init-n", str(C4_INIT_N), "--cull-budget", str(C4_BUDGET),
-        "--stages", str(TRAIN_STAGES), "--steps", str(TRAIN_STEPS),
-        "--skip-ceiling", "--from-scene", trained_scene, "--refine", "1",
+        "--merge-cell", "0.04", "--stages", str(TRAIN_STAGES),
+        "--steps", str(TRAIN_STEPS), "--skip-ceiling", "--from-scene",
+        trained_scene, "--refine", "1",
         "--refine-proposals", "64", "--refine-phases", "2",
         "--refine-sigma-c", "0.075", "--refine-sigma-r", "0.0375",
         "--refine-bias", "residual", "--refine-colors", "0.0625",
@@ -1472,7 +1473,7 @@ def phase_refine_c4(torch, dev, tmp: str) -> tuple[dict, dict]:
     # The chain also evaluates the starting point once on each batch.
     wall_ms = (time.perf_counter() - t0) * 1000.0 / (n_prop + 1)
     peak = torch.cuda.max_memory_allocated()
-    prof = profile_calls(torch, lambda i: chain(n_prop), 1)
+    prof = profile_calls(lambda i: chain(n_prop), 1)
     per = {key: (prof[key] / (n_prop + 1)) for key in (
         "device_busy_ms_per_step", "device_events_per_step")}
     k3_ms = prof["hand_kernels_ms_per_step"].get("culled_march_kernel",
@@ -1543,6 +1544,399 @@ def phase_guard_c1(torch, tmp: str) -> dict:
     return launches
 
 
+def kernel_counters() -> dict:
+    """Every kernel wrapper's launch counter, by the ``kernels`` line's
+    names."""
+    from burn_raymarching_tpu_torch.ops.cuda import culled_march_kernel as k3
+    from burn_raymarching_tpu_torch.ops.cuda import repulsion_kernel as k4
+
+    return {**c1_counters(), "culled_march": k3.culled_march_normals,
+            "repulsion_fwd": k4.launch_rep_fwd,
+            "repulsion_bwd": k4.launch_rep_bwd}
+
+
+def counted(torch, run) -> tuple:
+    """``run()`` with every kernel's count set to 0 just before and read
+    just after → (its result, launches per kernel, seconds)."""
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return (out, {name: fn.launches for name, fn in counters.items()},
+            round(time.perf_counter() - t0, 3))
+
+
+def require_launches(launches: dict, names, path: str) -> None:
+    missing = [name for name in names if launches[name] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the {path} path: "
+                             f"{missing}")
+
+
+def k3_case(torch, args, k, steps, t_init, label, failures) -> dict:
+    """K3 at one shape against its plain version, held to 5x the plain
+    version's own gap to the float64 march (march_noise_tols) → errors,
+    times and the bound of the work this run's tables need."""
+    from burn_raymarching_tpu_torch.ops.cuda import culled_march_kernel as k3
+    from burn_raymarching_tpu_torch.render.culled import (
+        culled_march_normals_xla,
+    )
+
+    kw = dict(num_steps=steps, t_init=t_init)
+    t_k, n_k = k3.culled_march_normals(*args, k, **kw)
+    t_p, n_p = culled_march_normals_xla(*args, k, **kw)
+    t_64, n_64 = culled_march_normals_xla(
+        *[a.double() for a in args], k, num_steps=steps,
+        t_init=None if t_init is None else t_init.double())
+    errs = march_errors(torch, t_k, n_k, t_p, n_p)
+    tols = march_noise_tols(torch, t_p, n_p, t_64, n_64)
+    for key, tol in tols.items():
+        check_close(failures, f"K3 {label} {key}", errs[key], tol)
+    tiles, rays = args[0].shape[0], args[0].shape[1]
+    valid_slots = int((args[4] < 1e29).sum())
+    return dict(
+        tiles=tiles, rays_per_tile=rays, table=args[2].shape[1],
+        valid_slots=valid_slots, num_steps=steps, errs=errs, tol=tols,
+        max_abs_err=errs["max_abs_err_t_hit"],
+        ms=time_ms(torch, lambda: k3.culled_march_normals(*args, k, **kw)),
+        device_ms=graph_ms(torch, lambda: k3.culled_march_normals(
+            *args, k, **kw), launches=5),
+        plain_ms=time_ms(torch, lambda: culled_march_normals_xla(
+            *args, k, **kw), reps=3),
+        **march_bound((steps + 7.0) * rays * valid_slots, *args, t_init,
+                      t_k, n_k))
+
+
+def phase_c5(torch, dev, tmp: str) -> tuple[dict, dict]:
+    """Config 5 cut to the script's time → (the launches of its training
+    path, K3's figures at config 5's shape)."""
+    from burn_raymarching_tpu_torch.render.culled import (
+        culled_march_normals_xla,
+    )
+    from burn_raymarching_tpu_torch.tools import generate, run_c5
+    from burn_raymarching_tpu_torch.train.loop import Trainer, build_dataset
+
+    data = os.path.join(tmp, "data_c5")
+    t0 = time.perf_counter()
+    generate.main(run_c5.generate_argv(data))
+    emit("generate_c5", views=C5_VIEWS, size=C5_SIZE, gt_n=C5_GT_N,
+         seconds=round(time.perf_counter() - t0, 3))
+    # The training cut: the first C5_TRAIN_VIEWS cameras of the set.
+    sub = os.path.join(tmp, "data_c5_cut")
+    os.makedirs(sub)
+    with open(os.path.join(data, "cameras.json")) as f:
+        cams = json.load(f)[:C5_TRAIN_VIEWS]
+    for cam in cams:
+        cam["file"] = os.path.join(data, os.path.basename(cam["file"]))
+    with open(os.path.join(sub, "cameras.json"), "w") as f:
+        json.dump(cams, f)
+    with open(os.path.join(data, "points.json")) as f_in, open(
+            os.path.join(sub, "points.json"), "w") as f_out:
+        f_out.write(f_in.read())
+    out = os.path.join(tmp, "c5")
+    argv = ["--out", out, "--data", sub, "--views", str(C5_TRAIN_VIEWS),
+            "--stages", "2", "--steps", str(C5_STEPS), "--device", "cuda"]
+    res, launches, seconds = counted(torch, lambda: run_c5.main(argv))
+    emit("train_c5", views=C5_TRAIN_VIEWS, size=C5_SIZE, init_n=C5_INIT_N,
+         cull_budget=C5_BUDGET, stages=2, steps_per_stage=C5_STEPS,
+         ceiling=res["ceiling"], init=res["init"], trained=res["trained"],
+         n_final=res["n_final"], loss_history=res["loss_history"],
+         eval_wall_s=res["eval_wall_s"], train_wall_s=res["train_wall_s"],
+         events=res["events"], seconds=seconds, launches=launches)
+    require_launches(launches, ("march_shade", "culled_march",
+                                "repulsion_fwd", "repulsion_bwd"), "config-5")
+    if not (all(math.isfinite(x) for x in res["loss_history"])
+            and res["trained"] > res["init"]):
+        raise AssertionError(f"bad config-5 result: {res['init']} -> "
+                             f"{res['trained']}, losses "
+                             f"{res['loss_history']}")
+
+    # The step at config 5's width on the scene it trained: wall and
+    # device-busy time, the top device ops.
+    cfg = run_c5.build_config(run_c5.make_parser().parse_args(argv), sub)
+    trainer = Trainer(cfg, build_dataset(cfg, device=dev),
+                      log=lambda s: None)
+    padded, mask = run_c5.scene_padded(os.path.join(out, "scene_c5.json"),
+                                       dev)
+    trainer.prefill_t_cache(padded, mask, cfg.max_smooth_k)
+    rate = step_rate(torch, trainer, padded, mask, steps=20,
+                     t_cache=trainer.t_cache)
+    wall_ms = cfg.batch_size / rate * 1000.0
+    prof = device_profile(torch, trainer, padded, mask, trainer.t_cache)
+    emit("step_c5", n_live=int(mask.sum()), slots=padded.n,
+         rays_per_s_kernels=rate, wall_ms_per_step=wall_ms,
+         device_busy_share=prof["device_busy_ms_per_step"] / wall_ms, **prof,
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
+
+    # K3 at config 5's shape: 32 tiles of the 256² rig against per-tile
+    # top-4,096 tables of the 51,200-sphere prior cloud, cold and warm.
+    failures = []
+    _, c_mask, c, r = knot_cloud(torch, dev, C5_INIT_N, gt_n=C5_GT_N)
+    args, stats = c4_tiles(torch, dev, c, r, c_mask, size=C5_SIZE,
+                           views=C5_VIEWS, budget=C5_BUDGET)
+    cold = k3_case(torch, args, C4_K, 40, None, "config-5 cold", failures)
+    t_warm = (culled_march_normals_xla(*args, C4_K)[0] * 0.8).contiguous()
+    warm = k3_case(torch, args, C4_K, 16, t_warm, "config-5 warm", failures)
+    emit("kernel", name="culled_march_c5", **stats, cold=cold, warm16=warm)
+
+    # The committed config-5 scene through --from-scene on the 100 views.
+    res_s, _, seconds_s = counted(torch, lambda: run_c5.main([
+        "--out", os.path.join(tmp, "c5_read"), "--data", data,
+        "--cull-budget", str(C5_BUDGET), "--coverage", "gaussian",
+        "--mask-sharp", "40", "--skip-ceiling", "--from-scene", C5_SCENE,
+        "--device", "cuda"]))
+    emit("from_scene_c5", scene="runs/c5_stack3/scene_c5.json",
+         psnr=res_s["init"], psnr_recorded_by_jax_package=C5_SCENE_PSNR_DB,
+         seconds=seconds_s)
+    check_close(failures, "runs/c5_stack3 scene PSNR (dB)",
+                abs(res_s["init"] - C5_SCENE_PSNR_DB), HEADLINE_TOL_DB)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    shape = {f"c5_{key}": warm[key] for key in (
+        "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+        "valid_slots")}
+    shape["c5_table"] = C5_BUDGET
+    shape["c5_cold_device_ms"] = cold["device_ms"]
+    shape["c5_cold_bound_ms"] = cold["bound_ms"]
+    return launches, shape
+
+
+def dist_rank(rank: int, world: int, port: int, path: str,
+              device: str = "cuda:0") -> None:
+    """One rank of the 2-rank model-axis march (spawned, gloo, both ranks on
+    the one card): this rank's half of the Morton-sorted rows, its per-tile
+    top-K tables, the union-table march through K3 (cold, then warm from
+    0.8 of the cold t) and the plain march that combines the shards at
+    every step → <path>.rank<r>.pt."""
+    sys.path.insert(0, ROOT)
+    import torch
+    import torch.distributed as dist
+
+    import burn_raymarching_tpu_torch  # noqa: F401  (sets TF32 off)
+    from burn_raymarching_tpu_torch.config import TrainConfig
+    from burn_raymarching_tpu_torch.ops.cuda import culled_march_kernel as k3
+    from burn_raymarching_tpu_torch.parallel.collectives import Axis
+    from burn_raymarching_tpu_torch.parallel.mesh import init_distributed
+    from burn_raymarching_tpu_torch.render.culled import (
+        culled_march_normals_xla,
+    )
+    from burn_raymarching_tpu_torch.train.step_body import (
+        culled_tables,
+        sharded_culled_kernel_march,
+    )
+
+    init_distributed(device, backend="gloo",
+                     init_method=f"tcp://localhost:{port}",
+                     world_size=world, rank=rank, timeout_s=300)
+    try:
+        inp = torch.load(path, map_location=device)
+        ax = Axis(group=dist.group.WORLD, size=world, index=rank)
+        rows = inp["c"].shape[0] // world
+        own = slice(rank * rows, (rank + 1) * rows)
+        cfg = TrainConfig(cull_tile=C4_TILE, cull_budget=int(inp["budget"]))
+        ro3, rd3 = inp["ro3"], inp["rd3"]
+        _, _, cs, rs, qs = culled_tables(
+            cfg, ro3.reshape(-1, 3), rd3.reshape(-1, 3), inp["c"][own],
+            inp["r"][own], C4_K, inp["mask"][own])
+        march = dict(normal_eps=1e-4)
+        k3.culled_march_normals.launches = 0
+        t_c, n_c = sharded_culled_kernel_march(
+            k3.culled_march_normals, ax, ro3, rd3, cs, rs, qs, C4_K,
+            num_steps=40, **march)
+        t0 = (t_c * 0.8).contiguous()
+        t_w, n_w = sharded_culled_kernel_march(
+            k3.culled_march_normals, ax, ro3, rd3, cs, rs, qs, C4_K,
+            num_steps=16, t_init=t0, **march)
+        launches = k3.culled_march_normals.launches
+        t_s, n_s = culled_march_normals_xla(ro3, rd3, cs, rs, qs, C4_K,
+                                            model_axis=ax)
+        torch.save({"t_cold": t_c.cpu(), "n_cold": n_c.cpu(),
+                    "t_warm": t_w.cpu(), "n_warm": n_w.cpu(),
+                    "t_sharded_plain": t_s.cpu(),
+                    "n_sharded_plain": n_s.cpu(),
+                    "tables": [x.cpu() for x in (cs, rs, qs)],
+                    "launches": launches}, f"{path}.rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_distributed(torch, dev, tmp: str) -> tuple[dict, dict]:
+    """DistributedTrainer and the sharded step on the card → (the launches
+    of its paths, K3's figures at the union shape)."""
+    import numpy as np
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from burn_raymarching_tpu_torch.models.scene import PARAM_KEYS
+    from burn_raymarching_tpu_torch.ops.culling import morton_order
+    from burn_raymarching_tpu_torch.parallel.distributed import (
+        DistributedTrainer,
+    )
+    from burn_raymarching_tpu_torch.parallel.mesh import (
+        free_port,
+        init_distributed,
+    )
+    from burn_raymarching_tpu_torch.ops.cuda import culled_march_kernel as k3
+    from burn_raymarching_tpu_torch.render.culled import (
+        culled_march_normals_xla,
+    )
+    from burn_raymarching_tpu_torch.tools import run_c5, train_cli
+    from burn_raymarching_tpu_torch.train.loop import Trainer, build_dataset
+
+    failures = []
+
+    def table_rows(p, m):
+        live = m.cpu().numpy()
+        return np.concatenate([getattr(p, k).detach().cpu().numpy()
+                               for k in PARAM_KEYS[:3]], axis=1)[live]
+
+    # (a) A 1 x 1 mesh over NCCL (a world of one on a free localhost port).
+    init_distributed(dev)
+    try:
+        argv = ["--out", os.path.join(tmp, "dist_c4"), "--data",
+                os.path.join(tmp, "data_c4"), "--views", str(C4_VIEWS),
+                "--size", str(C4_SIZE), "--gt-n", str(C4_GT_N),
+                "--init-n", str(C4_INIT_N), "--cull-budget", str(C4_BUDGET),
+                "--stages", "1", "--steps", str(DIST_STEPS)]
+        cfg = run_c5.build_config(run_c5.make_parser().parse_args(argv),
+                                  os.path.join(tmp, "data_c4"))
+        ds = build_dataset(cfg, device=dev)
+        dist_trainer = DistributedTrainer(cfg, ds, data=1, model=1,
+                                          log=lambda s: None)
+        (p_d, m_d), launches_c4, seconds = counted(torch, dist_trainer.run)
+        # The plain Trainer takes the sharded trainer's stage-start row
+        # order (Morton): a scene is a set, but top-K selection breaks ties
+        # between equal scores by row, so both must see one order.
+        trainer = Trainer(cfg, ds, log=lambda s: None)
+        trainer._prepare_stage_params = dist_trainer._prepare_stage_params
+        p_t, m_t = trainer.run()
+        rows_d, rows_t = table_rows(p_d, m_d), table_rows(p_t, m_t)
+        # The JAX package's tolerance for the same comparison
+        # (tests/test_distributed.py:95-100): rows atol 4e-3 + rtol 2e-2,
+        # light and ambient atol 4e-4.
+        excess = float(np.max(np.abs(rows_d - rows_t)
+                              - (4e-3 + 2e-2 * np.abs(rows_t))))
+        err_light = max(float((getattr(p_d, k) - getattr(p_t, k)).abs().max())
+                        for k in ("light_dir", "ambient"))
+        emit("distributed_c4", mesh=[1, 1], backend=dist.get_backend(),
+             stages=1, steps=DIST_STEPS, n_live=int(m_d.sum()),
+             max_row_err_vs_trainer=float(np.abs(rows_d - rows_t).max()),
+             row_tol="atol 4e-3 + rtol 2e-2", row_excess_over_tol=excess,
+             max_light_ambient_err=err_light, light_ambient_tol=4e-4,
+             seconds=seconds, launches=launches_c4)
+        check_close(failures, "1x1 DistributedTrainer rows vs Trainer "
+                    "(excess over atol 4e-3 + rtol 2e-2)", excess, 0.0)
+        check_close(failures, "1x1 DistributedTrainer light/ambient",
+                    err_light, 4e-4)
+        require_launches(launches_c4, ("culled_march",), "1x1 culled")
+
+        # Dense config-1 steps with --turbo through the sharded step: K1
+        # and K2. A 1 x 1 mesh never warms the dense march (the JAX
+        # package's gate), so its twin is the Trainer without warm start.
+        cfg1 = train_cli.build_config(train_cli.make_parser().parse_args([
+            "--cameras", os.path.join(tmp, "data", "cameras.json"),
+            "--stages", "1", "--steps", str(DIST_STEPS), "--turbo",
+            "--scene-out", os.path.join(tmp, "dist_c1", "scene.json"),
+            "--steps-dir", os.path.join(tmp, "dist_c1", "steps"),
+            "--checkpoint-dir", ""]))
+        ds1 = build_dataset(cfg1, device=dev)
+        (p_d, m_d), launches_c1, seconds = counted(torch, lambda: (
+            DistributedTrainer(cfg1, ds1, data=1, model=1,
+                               log=lambda s: None).run()))
+        p_t, m_t = Trainer(dataclasses.replace(cfg1, warm_start=False), ds1,
+                           log=lambda s: None).run()
+        err_c1 = max(float((getattr(p_d, k) - getattr(p_t, k)).abs().max())
+                     for k in PARAM_KEYS)
+        emit("distributed_c1", mesh=[1, 1], steps=DIST_STEPS,
+             max_param_err_vs_trainer=err_c1, tol=0.0, seconds=seconds,
+             launches=launches_c1)
+        check_close(failures, "1x1 dense DistributedTrainer vs Trainer",
+                    err_c1, 0.0)
+        require_launches(launches_c1, list(c1_counters()), "1x1 dense")
+    finally:
+        dist.destroy_process_group()
+
+    # (b) Two model ranks on the one card over gloo: the union-table march
+    # launches K3 on [B/2, 2K] tables; held against the 1-rank march on
+    # the same union table (K3, the JAX sharding tests' tolerances) and
+    # against the plain march (K3's own noise tolerances).
+    _, c_mask, c, r = knot_cloud(torch, dev, C4_INIT_N)
+    args, _ = c4_tiles(torch, dev, c, r, c_mask)
+    order = torch.as_tensor(morton_order(c.cpu().numpy()), device=dev)
+    path = os.path.join(tmp, "dist_inputs.pt")
+    torch.save({"c": c[order], "r": r[order], "mask": c_mask[order],
+                "ro3": args[0], "rd3": args[1],
+                "budget": torch.tensor(C4_BUDGET // 2)}, path)
+    port = free_port()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=dist_rank, args=(rank, 2, port, path))
+             for rank in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(600)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"the 2-rank march failed: exit codes "
+                             f"{[p.exitcode for p in procs]}")
+    ranks = [torch.load(f"{path}.rank{k}.pt") for k in range(2)]
+    seconds = round(time.perf_counter() - t0, 3)
+    # The union table of every tile: each rank's K-block, in rank order.
+    union = [torch.cat([rk["tables"][i] for rk in ranks], dim=1).to(dev)
+             for i in range(3)]
+    u_args = (args[0], args[1], *union)
+    t1, n1 = k3.culled_march_normals(*u_args, C4_K)
+    t1w, n1w = k3.culled_march_normals(*u_args, C4_K, num_steps=16,
+                                       t_init=(t1 * 0.8).contiguous())
+    t_p, n_p = culled_march_normals_xla(*u_args, C4_K)
+    out = {}
+    for label, (t_ref, n_ref), key in (("cold", (t1, n1), "cold"),
+                                       ("warm16", (t1w, n1w), "warm")):
+        hit = (t_ref[..., 0] < 5.0).cpu()
+        for k_r, rk in enumerate(ranks):
+            dt = float(((rk[f"t_{key}"] - t_ref.cpu()).abs()
+                        - 2e-5 * t_ref.cpu().abs()).max())
+            dn = float((rk[f"n_{key}"] - n_ref.cpu()).abs()[hit].max())
+            check_close(failures, f"union march {label} t rank {k_r} "
+                        f"(excess over rtol 2e-5)", dt, 2e-5)
+            check_close(failures, f"union march {label} normals rank {k_r}",
+                        dn, 1e-3)
+            out[f"{label}_rank{k_r}"] = {"t_excess_over_rtol": dt,
+                                         "normal_hit_max_err": dn}
+    plain_gap = march_errors(torch, ranks[0]["t_sharded_plain"].to(dev),
+                             ranks[0]["n_sharded_plain"].to(dev), t_p, n_p)
+    # K3 against its plain version at the union shape (one rank's slice of
+    # tiles against its [B/2, 2K] union rows).
+    half = args[0].shape[0] // 2
+    u_slice = tuple(a[:half].contiguous() for a in u_args)
+    union_case = k3_case(torch, u_slice, C4_K, 16,
+                         (t1[:half] * 0.8).contiguous(), "union shape",
+                         failures)
+    emit("distributed_model_axis", ranks=2, backend="gloo (one card)",
+         tiles=args[0].shape[0], per_rank_table=C4_BUDGET // 2,
+         union_table=union[0].shape[1], vs_one_rank_k3=out,
+         sharded_plain_vs_plain_on_union=plain_gap,
+         launches_per_rank=[rk["launches"] for rk in ranks],
+         union_shape=union_case, seconds=seconds)
+    if any(rk["launches"] != 2 for rk in ranks):
+        raise AssertionError("the union-table march did not launch K3 once "
+                             "per march on every rank")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    launches = {name: launches_c4[name] + launches_c1[name]
+                for name in launches_c4}
+    launches["culled_march"] += sum(rk["launches"] for rk in ranks)
+    shape = {f"union_{key}": union_case[key] for key in (
+        "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "table",
+        "tiles", "valid_slots")}
+    return launches, shape
+
+
 _PALLAS = "burn_raymarching_tpu/ops/pallas/"
 _CSRC = "burn_raymarching_tpu_torch/csrc/"
 SOURCES = {
@@ -1586,9 +1980,12 @@ def main() -> int:
         launches.update(phase_c4(torch, tmp))
         launches_refine, refine_shape = phase_refine_c4(torch, dev, tmp)
         launches_guard = phase_guard_c1(torch, tmp)
-    kernels["culled_march"].update(refine_shape)
+        launches_c5, c5_shape = phase_c5(torch, dev, tmp)
+        launches_dist, union_shape = phase_distributed(torch, dev, tmp)
+    kernels["culled_march"].update(refine_shape, **c5_shape, **union_shape)
     # ``launches``: the two training paths (phases 6 and 8);
-    # ``launches_quality``: the refine and guard paths (phases 9 and 10).
+    # ``launches_quality``: the refine and guard paths (phases 9 and 10);
+    # ``launches_c5`` and ``launches_distributed``: phases 11 and 12.
     # Every path had its counts set to 0 just before it and read after it,
     # and every kernel is counted on one of the two quality paths.
     quality = {**launches_guard, **launches_refine}
@@ -1598,7 +1995,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k][0],
          "replaces": SOURCES[k][1], "launches": launches[k],
-         "launches_quality": quality[k], **kernels[k]}
+         "launches_quality": quality[k], "launches_c5": launches_c5[k],
+         "launches_distributed": launches_dist[k], **kernels[k]}
         for k in SOURCES]}), flush=True)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
