@@ -118,6 +118,11 @@ class DistributedTrainer(Trainer):
         self.data_axis = mesh_axis(self.mesh, "data")
         self.model_axis = mesh_axis(self.mesh, "model")
         self.model, self.n_data = self.model_axis.size, self.data_axis.size
+        tiles = cfg.batch_size // self.n_data // cfg.cull_tile
+        if cfg.use_culling and self.model > 1 and tiles % self.model:
+            raise ValueError(
+                f"the {tiles} tiles of a rank's batch do not split over the "
+                f"{self.model} model ranks of the union-table march")
         self._io = is_host0()
         sharded = ShardedRayDataset(dataset, self.mesh,
                                     fg_threshold=cfg.fg_pixel_threshold)
@@ -135,9 +140,13 @@ class DistributedTrainer(Trainer):
     # --- step construction -------------------------------------------- #
 
     def _build_step(self, render_overrides=None):
+        # K1 marches a whole table and has no union form: the model-sharded
+        # dense step is the plain sharded march (no kernel exists for it, in
+        # either package); the culled step runs K3 on the union table.
+        dense_kernel = self.model == 1 or self.cfg.use_culling
         return make_sharded_train_step(
             self._stage_cfg(render_overrides), self.mesh,
-            march_normal_fn=self.march_normal_fn,
+            march_normal_fn=self.march_normal_fn if dense_kernel else None,
             culled_march_fn=self.culled_march_normal_fn, warm=self.warm)
 
     def _warm_gate(self) -> bool:
@@ -156,6 +165,9 @@ class DistributedTrainer(Trainer):
         return culled_march_backend(
             self.culled_march_normal_fn, b_t,
             self.model_axis if self.model > 1 else None)
+
+    def _march_tile_quantum(self) -> int:
+        return self.model
 
     # --- layout hooks --------------------------------------------------- #
 

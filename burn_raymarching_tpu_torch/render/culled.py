@@ -1,5 +1,5 @@
 """Differentiable renderer with coherent-tile primitive culling (port of
-burn_raymarching_tpu/render/culled.py, single-device branches).
+burn_raymarching_tpu/render/culled.py).
 
 Same forward model and gradient topology as render/diff.py, but every field
 evaluation runs against per-tile top-K tables (ops/culling.py) instead of
@@ -157,13 +157,19 @@ def render_diff_culled(
     normal [B,T,3]) skips selection and the detached march: the training
     step runs them outside autograd and only the gradient-carrying tail,
     with tables re-gathered from the live parameters, runs here.
-    ``model_axis``: the arguments are one shard (module docstring); the
-    K3 kernel sees a whole table, so ``march_normal_fn`` is not used then.
+    ``model_axis``: the arguments are one shard (module docstring). K3 sees
+    a whole table, so a ``march_normal_fn`` is refused then: the sharded
+    step marches on the union table (train/step_body.culled_march_backend)
+    and passes the result as ``precomputed``.
     """
     n = ray_org.shape[0]
     b = n // tile
     if b * tile != n:
         raise ValueError(f"N={n} not divisible by tile={tile}")
+    if march_normal_fn is not None and model_axis is not None:
+        raise ValueError("march_normal_fn marches a whole table; under "
+                         "model_axis pass the union-table march's result "
+                         "as precomputed")
 
     if precomputed is not None:
         idx, valid, t, normal = precomputed
@@ -187,7 +193,7 @@ def render_diff_culled(
 
     if precomputed is not None:
         pass                                   # t, normal arrived detached
-    elif march_normal_fn is not None and model_axis is None:
+    elif march_normal_fn is not None:
         with torch.no_grad():
             t, normal = march_normal_fn(ro, rd, cs, rs, qs, smooth_k,
                                         num_steps=num_steps,

@@ -101,11 +101,14 @@ def render_diff(
 
     ``march_normal_fn`` (e.g. the K1 kernel) returns the detached
     (t, normal) in one call, replacing the separate march + scene_normal;
-    it sees a whole table, so it is not used with ``model_axis``.
+    it sees a whole table, so it is refused with ``model_axis``.
     """
+    if march_normal_fn is not None and model_axis is not None:
+        raise ValueError("march_normal_fn marches a whole table; it cannot "
+                         "run on one model shard")
     c_det, r_det = centers.detach(), radii.detach()
     ax = {} if model_axis is None else dict(model_axis=model_axis)
-    if march_normal_fn is not None and model_axis is None:
+    if march_normal_fn is not None:
         t, normal = march_normal_fn(ray_org, ray_dir, c_det, r_det, smooth_k,
                                     mask=mask, num_steps=num_steps,
                                     normal_eps=normal_eps)

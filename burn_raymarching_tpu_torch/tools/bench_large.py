@@ -31,61 +31,13 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
-import os
 import subprocess
-import tempfile
 import time
 
 import numpy as np
 import torch
 
-# The __global__ functions under csrc/, as a trace names them.
-HAND_KERNELS = ("march_shade_kernel", "march_pack_kernel",
-                "culled_march_kernel", "shade_pack_kernel",
-                "shade_fwd_kernel", "shade_bwd_kernel", "rep_fwd_kernel",
-                "rep_bwd_kernel")
-
-
-def profile_calls(one, steps: int) -> dict:
-    """torch.profiler over ``one(0)`` .. ``one(steps - 1)``, read from its
-    trace's device events (kernels, copies, memsets; not the annotation
-    spans that the trace also places on the device) → busy device time per
-    step (the union of their intervals), events per step, the five kernel
-    names with the most device time, and the device time of each
-    hand-written kernel (HAND_KERNELS) that ran."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for s in range(steps):
-            one(s)
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
-                    e.get("name", "")) for e in events
-                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
-                   and "dur" in e)
-    busy_us, end = 0.0, -math.inf
-    by_name: dict = {}
-    for start, stop, name in spans:
-        busy_us += max(0.0, stop - max(start, end))
-        end = max(end, stop)
-        by_name[name] = by_name.get(name, 0.0) + (stop - start)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    hand = {k: sum(d for name, d in by_name.items() if k in name)
-            for k in HAND_KERNELS}
-    return {"device_busy_ms_per_step": busy_us / 1000.0 / steps,
-            "device_events_per_step": len(spans) / steps,
-            "top_kernels_ms_per_step": [[k[:60], d / 1000.0 / steps]
-                                        for k, d in top],
-            "hand_kernels_ms_per_step": {k: d / 1000.0 / steps
-                                         for k, d in hand.items() if d > 0}}
+from burn_raymarching_tpu_torch.tools.device_time import profile_calls
 
 
 def make_dataset(n_pixels: int, side: int, device):

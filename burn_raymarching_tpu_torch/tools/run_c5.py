@@ -25,10 +25,10 @@ skips training and runs only those rounds on an exported scene (the
 ``init`` row is then the scene's PSNR); ``--ceiling-only`` measures the
 ceiling, merges it into <out>/results.json and stops. ``--distributed``
 trains with DistributedTrainer on a (data 1, model 1) mesh, the JAX
-script's check that the sharded trainer trains as the plain one does. ``--device`` (cuda by default; ``--cpu`` is
-``--device cpu``) is the port's own. The default ``--out`` is
-runs/c5_torch, so that the JAX package's runs/c5 record is never
-overwritten.
+script's check that the sharded trainer trains as the plain one does.
+``--device`` (cuda by default; ``--cpu`` is ``--device cpu``) is the
+port's own. The default ``--out`` is runs/c5_torch, so that the JAX
+package's runs/c5 record is never overwritten.
 
 <out>/results.json holds the JAX script's keys, each as it ran, plus
 ``eval_wall_s``, ``loss_history``, ``guard_retries`` and ``events`` (what
@@ -48,29 +48,6 @@ import json
 import math
 import os
 import time
-
-
-def recipe_argv(data_dir: str, out: str, *, size: int = 512,
-                init_n: int = 5120, steps: int = 1000, stages: int = 3,
-                cull_budget: int = 2048, seed: int = 0,
-                device: str = "cuda", mask_sharp: float = 60.0,
-                extra: tuple = ()) -> list[str]:
-    """train_cli arguments of the large-scene recipe at config 4's shape;
-    ``extra`` appends further train_cli flags."""
-    return [
-        "--cameras", os.path.join(data_dir, "cameras.json"),
-        "--width", str(size), "--height", str(size),
-        "--stages", str(stages), "--steps", str(steps), "--seed", str(seed),
-        "--init-layout", "cloud", "--init-n", str(init_n),
-        "--init-points", os.path.join(data_dir, "points.json"),
-        "--turbo", "--cull", str(cull_budget), "--sample-mode", "tile",
-        "--cluster-repulsion", "--rep-far-field", "member",
-        "--wd-mode", "decoupled", "--lr", "0.02",
-        "--lr-scales", "0.001,1,0.1,0.5", "--smooth-k", "128",
-        "--sharp", f"40,{mask_sharp:g}", "--merge-cell", "0.04",
-        "--scene-out", os.path.join(out, "scene_c5.json"),
-        "--steps-dir", os.path.join(out, "steps"),
-        "--checkpoint-dir", "", "--device", device, *extra]
 
 
 def generate_argv(data_dir: str, *, views: int = 100, size: int = 256,

@@ -34,8 +34,9 @@ Subclass hooks (parallel/distributed.DistributedTrainer overrides them):
 ``_prepare_stage_params`` (row order at stage start), ``_stage_generator``
 (the stage's sampling generator), ``_prefill_rays`` (the pixels this rank
 prefills), ``_culled_march`` (the detached culled march for a tile batch),
-``_global_dataset`` (the whole dataset, for residual scoring and
-refinement), ``_build_cluster_table`` and ``_warm_gate``; ``_io`` gates the
+``_march_tile_quantum`` (what a prefill chunk's tile count is padded to a
+multiple of), ``_global_dataset`` (the whole dataset, for residual scoring
+and refinement), ``_build_cluster_table`` and ``_warm_gate``; ``_io`` gates the
 file writes (scene.json, previews, checkpoints, metrics).
 """
 
@@ -304,6 +305,11 @@ class Trainer:
     def _culled_march(self, b_t: int) -> Callable:
         """The detached culled march for a batch of ``b_t`` tiles."""
         return culled_march_backend(self.culled_march_normal_fn, b_t)
+
+    def _march_tile_quantum(self) -> int:
+        """The tile count of a culled march batch divides by this (the
+        union-table march splits the tiles over the model ranks)."""
+        return 1
 
     def _warm_gate(self) -> bool:
         """Warm start needs a march that takes t_init: the culled path
@@ -637,11 +643,11 @@ class Trainer:
     def _culled_cold_march(self, ro, rd, centers_p, radii_p, mask,
                            smooth_k) -> torch.Tensor:
         """Full cold march of one pixel chunk through the culled march (flat
-        selection: always conservative). The chunk is padded to whole tiles
-        with copies of its last ray."""
+        selection: always conservative). The chunk is padded with copies of
+        its last ray to whole tiles, as many as _march_tile_quantum takes."""
         cfg = self.cfg
         n, tile = ro.shape[0], cfg.cull_tile
-        pad = -n % tile
+        pad = -n % (tile * self._march_tile_quantum())
         if pad:
             ro = torch.cat([ro, ro[-1:].expand(pad, 3)])
             rd = torch.cat([rd, rd[-1:].expand(pad, 3)])

@@ -28,8 +28,10 @@ single-device and the sharded step:
   and softmax combine shards (render/, ops/sdf.py), the cluster table is
   in the shard's own row ids, the loss is the sharded plain version, and
   the detached culled march runs K3 on the union table
-  (``sharded_culled_kernel_march``) when the tile batch splits evenly over
-  the axis. K1, K2 and K4 see whole tables and are not used under it.
+  (``sharded_culled_kernel_march``); a tile batch that does not split
+  evenly over the axis is an error, never a silent switch to the plain
+  march. K2 and K4 see whole tables and are not used under it; K1 has no
+  union form, so a model-sharded dense step given K1 is an error too.
   Every rank back-propagates its own copy of the replicated loss; the
   collectives carry shard_map's transposes, so the gradient of a replicated
   leaf (light, ambient) is already the total on every rank.
@@ -234,16 +236,22 @@ def sharded_culled_kernel_march(
 
 def culled_march_backend(culled_march_fn: Optional[Callable], b_t: int,
                          model_axis: Optional[Axis] = None) -> Callable:
-    """The detached culled march for a batch of ``b_t`` tiles: the kernel
-    directly on a single table; under an M-sharded table the union-table
-    wrapper around it when the tiles split evenly over the axis; else the
-    plain march, whose soft-min combines shards at every step."""
-    if culled_march_fn is not None and model_axis is None:
+    """The detached culled march for a batch of ``b_t`` tiles: without a
+    kernel the plain march (under an M-sharded table its soft-min combines
+    the shards at every step); the kernel directly on a single table; under
+    an M-sharded table the union-table wrapper around it, which needs the
+    tiles to split evenly over the axis (ValueError otherwise: the JAX
+    package falls back to the plain march there, the port does not)."""
+    if culled_march_fn is None:
+        return functools.partial(culled_march_normals_xla,
+                                 model_axis=model_axis)
+    if model_axis is None:
         return culled_march_fn
-    if culled_march_fn is not None and b_t % model_axis.size == 0:
-        return functools.partial(sharded_culled_kernel_march,
-                                 culled_march_fn, model_axis)
-    return functools.partial(culled_march_normals_xla, model_axis=model_axis)
+    if b_t % model_axis.size:
+        raise ValueError(f"{b_t} tiles do not split over the {model_axis.size}"
+                         f" model ranks of the union-table march")
+    return functools.partial(sharded_culled_kernel_march, culled_march_fn,
+                             model_axis)
 
 
 def make_device_step(cfg: TrainConfig, *, march_normal_fn: Optional[Callable],
@@ -272,6 +280,9 @@ def make_device_step(cfg: TrainConfig, *, march_normal_fn: Optional[Callable],
     fused = uses_fused_shade(cfg, march_normal_fn, model_axis)
     if model_axis is not None:
         repulsion_fn = None
+        if march_normal_fn is not None and not cfg.use_culling:
+            raise ValueError("K1 marches a whole table: a model-sharded dense "
+                             "step takes no march_normal_fn")
     dense_warm = warm and march_normal_fn is not None and model_axis is None
     hier = cfg.use_culling and cfg.cull_hierarchical
     # Pixel-footprint supersampling (RenderConfig.supersample): batch/ss

@@ -91,6 +91,25 @@ def test_distributed_full_featureset_density(tmp_path, data, model,
         assert [e["kind"] for e in r["events"]] == ["density"]
 
 
+def test_distributed_union_march_pads_the_prefill_chunk(tmp_path):
+    """(1, 2) with the K3 wrapper on a 20 × 20 rig: 400 pixels are 25 tiles
+    of 16, so the prefill's last 64-ray chunk holds one tile. It is padded
+    to two, so that the union-table march splits it over the model ranks
+    (an odd tile count is an error there, not a switch to the plain
+    march). A batch of 3 tiles is refused when the trainer is built."""
+    ro, rd = create_camera_rays(20, 20, [0.0, 0.5, -2.5], [0, 0, 0], 50.0)
+    arrays = (ro.numpy(), rd.numpy(), np.clip(np.abs(rd.numpy()), 0, 1))
+    cfg = dict(FULL_FEATURES, batch_size=64, stages=1, steps_per_stage=2)
+    res = torch_dist.run_ranks(
+        tmp_path, 2, torch_dist.train_distributed, 1, 2, cfg, arrays,
+        str(tmp_path), kernel_wrappers=True, probe_batch=48)
+    assert_finite(res)
+    for r in res:
+        assert r["t_cache"].shape == (400,)
+        assert np.isfinite(r["t_cache"]).all() and r["t_cache"].max() > 0.0
+        assert "3 tiles" in r["probe_error"]
+
+
 def _rows(p, m):
     # A scene is a SET of primitives (the sharded trainer Morton-sorts
     # rows at stage start): canonicalize the live rows' order.

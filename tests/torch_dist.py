@@ -11,6 +11,7 @@ a hung collective fails the test instead of stalling the suite.
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 import pickle
@@ -274,14 +275,16 @@ def _run_summary(tr, padded, mask) -> dict:
 
 
 def train_distributed(rank, world, data, model, cfg_kw, dataset_arrays,
-                      out_dir, single=False, kernel_wrappers=False):
+                      out_dir, single=False, kernel_wrappers=False,
+                      probe_batch=None):
     """DistributedTrainer.run on a (data, model) mesh, in ``out_dir`` →
     the whole final table (every rank holds it), this rank's t-cache
     shard, the loss history and the trainer's events; with ``single`` also
     the single-device Trainer's run of the same configuration. With
-    ``kernel_wrappers`` the step takes the K3 wrapper (its plain version on
-    the CPU), so that the trainer's culled step goes through the
-    union-table march."""
+    ``kernel_wrappers`` the step and the prefill take the K3 wrapper (its
+    plain version on the CPU), so that the trainer's culled marches go
+    through the union table. With ``probe_batch`` the result also holds the
+    error (or None) of a DistributedTrainer built with that batch size."""
     from burn_raymarching_tpu_torch.config import DensityConfig, TrainConfig
     from burn_raymarching_tpu_torch.data.dataset import RayDataset
     from burn_raymarching_tpu_torch.ops.cuda.culled_march_kernel import (
@@ -307,6 +310,14 @@ def train_distributed(rank, world, data, model, cfg_kw, dataset_arrays,
         tr.culled_march_normal_fn = culled_march_normals
         tr.step_fn = tr._build_step()
     out = _run_summary(tr, *tr.run())
+    if probe_batch is not None:
+        out["probe_error"] = None
+        try:
+            DistributedTrainer(
+                dataclasses.replace(cfg, batch_size=probe_batch), ds,
+                data=data, model=model, log=lambda s: None)
+        except ValueError as e:
+            out["probe_error"] = str(e)
     if single:
         one = Trainer(cfg, ds, log=lambda s: None)
         out["single"] = _run_summary(one, *one.run())
