@@ -9,14 +9,18 @@ first use and bound with ctypes (``ops/cuda/``).
 
 Layer map:
   config     — the four configuration dataclasses
-  utils/     — padding buckets, Morton pixel orders, metrics logger
+  utils/     — padding buckets, Morton pixel orders, metrics logger,
+               profiling (trace, annotate, timed_step, debug_mode)
   ops/       — SDF math, soft-min, march, culling; ops/cuda: K1 march+normals,
                K2 shade, K3 culled march, K4 cluster repulsion
   models/    — SceneParams (nn.Module of raw params) + activations + forward
   render/    — differentiable + ground-truth renderers, tiled previews
   data/      — cameras, ray dataset + sampling, PNG (stdlib) and scene I/O
   train/     — loss, Adam, density control, step, multi-stage loop
-  tools/     — generate / train CLIs
+  tools/     — generate / train CLIs, the offline and HTTP viewers, the
+               capture tools (chromakey, COLMAP → cameras.json, camera
+               processing; they need Pillow)
+  native/    — ctypes bindings of the C++ host helpers (g++ at first use)
 
 Numerics: fp32 throughout. TF32 is switched off here, at import, for both
 matmuls and cuDNN: it keeps ~3 decimal digits, which corrupts the distance

@@ -26,8 +26,8 @@ def _chunk(tag: bytes, data: bytes) -> bytes:
     return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", crc)
 
 
-def write_png_rgb(pixels: np.ndarray, path: str) -> None:
-    """Write a [H, W, 3] uint8 array as an 8-bit RGB PNG."""
+def encode_png_rgb(pixels: np.ndarray) -> bytes:
+    """Encode a [H, W, 3] uint8 array as the bytes of an 8-bit RGB PNG."""
     pixels = np.ascontiguousarray(pixels, dtype=np.uint8)
     h, w, c = pixels.shape
     if c != 3:
@@ -35,10 +35,16 @@ def write_png_rgb(pixels: np.ndarray, path: str) -> None:
     raw = np.concatenate(
         [np.zeros((h, 1), np.uint8), pixels.reshape(h, w * 3)], axis=1)
     ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return (_SIG + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + _chunk(b"IEND", b""))
+
+
+def write_png_rgb(pixels: np.ndarray, path: str) -> None:
+    """Write a [H, W, 3] uint8 array as an 8-bit RGB PNG."""
+    data = encode_png_rgb(pixels)
     with open(path, "wb") as f:
-        f.write(_SIG + _chunk(b"IHDR", ihdr)
-                + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
-                + _chunk(b"IEND", b""))
+        f.write(data)
 
 
 def _chunks(data: bytes):

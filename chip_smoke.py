@@ -108,15 +108,29 @@ non-zero without the final result line:
                    on [B/2, 2,048] tables; held against one K3 launch on
                    the same union table (rtol 2e-5, normals 1e-3, the JAX
                    package's sharding tests) and K3 at that shape against
-                   its plain version.
+                   its plain version;
+ 13. viewer      — the offline and HTTP viewers on
+                   runs/c5_headline/scene_c5.json (2,435 spheres) from the
+                   default orbit pose: 512² train-model frames through
+                   render_pose with K1 counted (ceil(512²/16,384) launches
+                   a frame), held to the same frame through the plain march
+                   within the viewer's uint8 bounds, with frame ms,
+                   device-busy and K1 ms per frame against K1's bound, and
+                   K1 on one 16,384-ray chunk against its plain version;
+                   the viewer model's float32 frame against float64 at
+                   128²; frame ms of both models at 96², 384² and 512²;
+                   the HTTP viewer (page, /scene, low and full frames of
+                   both models, decoded with read_png); one frame under
+                   utils.profiling.trace, whose trace must hold the
+                   annotation and K1.
 K1's early exit (``early_exit=True``; no path sets it) is held at every
 table width of phase 3 against the fixed-count launch, against its plain
 version, and timed beside the fixed-count launch.
 The line before the last is {"kernels": [...]}: per kernel its launches on
 the training path (``launches``), on the quality path that runs it
 (``launches_quality``: phase 9 for K3 and K4, phase 10 for K1 and K2), on
-the config-5 path (``launches_c5``) and on the distributed paths
-(``launches_distributed``), error, ``ms`` (the wrapper call between CUDA
+the config-5 path (``launches_c5``), on the distributed paths
+(``launches_distributed``) and on the viewer's (``launches_viewer``), error, ``ms`` (the wrapper call between CUDA
 events),
 ``device_ms`` (the same call replayed from a CUDA graph), the plain
 version's time, ``bound_ms`` (the least time the card could take, see
@@ -191,6 +205,20 @@ C5_SCENE = os.path.join(ROOT, "runs", "c5_stack3", "scene_c5.json")
 C5_SCENE_PSNR_DB = 28.5149576006399
 # Steps of the 1 x 1 DistributedTrainer runs (one stage each).
 DIST_STEPS = 60
+# Phase 13, the viewers: the config-5 headline scene (2,435 spheres, past
+# K1's 1,024-slot shared-memory chunk) from the viewer's default orbit pose,
+# frames rendered VIEWER_CHUNK rays at a time (render_pose's default), the
+# HTTP viewer's full size (its low size is a quarter of it), and the uint8
+# bounds of the viewer's golden test (tests/test_viewer_shader.py): mean
+# |du8| and the share of pixels more than 2 LSB off; and the bound the CPU
+# viewer tests put on the share of pixels lit in one frame and black in the
+# other (tests/test_torch_viewer.py), so lost or gained hits on a thin
+# silhouette do not hide under the two means.
+VIEWER_SCENE = os.path.join(ROOT, "runs", "c5_headline", "scene_c5.json")
+VIEWER_EYE = [2.5, 0.5, 0.0]
+VIEWER_SIZE, VIEWER_CHUNK, SERVER_SIZE = 512, 16384, 384
+VIEWER_MEAN_LSB, VIEWER_OFF2_SHARE = 0.05, 0.002
+VIEWER_LIT_MISMATCH = 0.005
 
 
 def events_of(events: list, kind: str) -> list:
@@ -1716,6 +1744,241 @@ def phase_c5(torch, dev, tmp: str) -> tuple[dict, dict]:
     return launches, shape
 
 
+def u8_gaps(a, b) -> dict:
+    """Two frames as the viewer writes them (gamma 2.2, uint8) → mean
+    |du8|, the share of pixels more than 2 LSB off, and the share where
+    one is lit and the other black."""
+    import numpy as np
+
+    def u8(img):
+        img = np.clip(np.asarray(img), 0, 1)
+        return (img ** (1 / 2.2) * 255).astype(np.int32).reshape(-1, 3)
+
+    ua, ub = u8(a), u8(b)
+    diff = np.abs(ua - ub)
+    return {"mean_lsb": float(diff.mean()),
+            "share_over_2_lsb": float((diff > 2).mean()),
+            "lit_mismatch_share": float(
+                ((ua.sum(1) > 0) != (ub.sum(1) > 0)).mean())}
+
+
+def check_u8(failures: list, name: str, gaps: dict) -> None:
+    check_close(failures, f"{name} mean |du8|", gaps["mean_lsb"],
+                VIEWER_MEAN_LSB)
+    check_close(failures, f"{name} share of pixels > 2 LSB off",
+                gaps["share_over_2_lsb"], VIEWER_OFF2_SHARE)
+    check_close(failures, f"{name} share of pixels lit in one frame only",
+                gaps["lit_mismatch_share"], VIEWER_LIT_MISMATCH)
+
+
+def wall_ms(torch, fn, reps: int) -> float:
+    """Median host-clock time of ``fn()`` (which ends in a host copy or a
+    synchronisation) over ``reps`` calls, in ms; the phase has run the same
+    kernels before."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1000.0 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def phase_viewer(torch, dev, tmp: str) -> tuple[dict, dict]:
+    """The offline and HTTP viewers on runs/c5_headline/scene_c5.json →
+    (the launches of the viewer's main path, K1's figures at its shape).
+
+    (a) ``render_pose(model="train")`` at 512², K1 counted: its frame held
+    to the same frame through the plain march, frame ms, device-busy and K1
+    ms per frame against K1's bound; (b) ``model="viewer"`` (plain PyTorch)
+    frame ms, and its float32 frame at 128² against a float64 run; frame ms
+    of both models at 96², 384² and 512²; (c) the HTTP viewer in a thread:
+    its page, /scene and low and full frames of both models; (d) one frame
+    under utils.profiling.trace inside annotate("viewer_frame")."""
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from burn_raymarching_tpu_torch.data.camera import create_camera_rays
+    from burn_raymarching_tpu_torch.data.image_io import read_png
+    from burn_raymarching_tpu_torch.data.scene_io import load_scene_json
+    from burn_raymarching_tpu_torch.ops.cuda import march_shade_kernel as k1
+    from burn_raymarching_tpu_torch.tools import device_time
+    from burn_raymarching_tpu_torch.tools import viewer_offline as view
+    from burn_raymarching_tpu_torch.tools.viewer_server import (
+        _ViewerState,
+        make_handler,
+    )
+    from burn_raymarching_tpu_torch.utils import profiling
+
+    scene = load_scene_json(VIEWER_SCENE)
+    m = scene["num_spheres"]
+    params = view.scene_tensors(scene, dev)
+    failures = []
+    torch.cuda.reset_peak_memory_stats()
+
+    def frame(model: str, size: int = VIEWER_SIZE):
+        return view.render_pose(scene, VIEWER_EYE, [0.0, 0.0, 0.0], size,
+                                model=model, device=dev)
+
+    # (a) The main path: train-model frames through K1, counted.
+    pixels = VIEWER_SIZE * VIEWER_SIZE
+    per_frame = math.ceil(pixels / VIEWER_CHUNK)
+    n_frames = 3
+    imgs, launches, seconds = counted(
+        torch, lambda: [frame("train") for _ in range(n_frames)])
+    want = {name: 0 for name in launches}
+    want["march_shade"] = want["march_pack"] = n_frames * per_frame
+    if launches != want:
+        raise AssertionError(f"viewer launches {launches}, expected {want}")
+    ro, rd = create_camera_rays(VIEWER_SIZE, VIEWER_SIZE, VIEWER_EYE,
+                                [0.0, 0.0, 0.0], 50.0, device=dev)
+    t0 = time.perf_counter()
+    plain = view.train_shade(ro, rd, *params, chunk=VIEWER_CHUNK,
+                             march_normal_fn=None).cpu().numpy()
+    plain_frame_ms = 1000.0 * (time.perf_counter() - t0)
+    gaps_train = u8_gaps(imgs[0], plain)
+    check_u8(failures, "train-model frame, K1 vs plain march", gaps_train)
+    prof = device_time.profile_calls(lambda s: frame("train"), 3)
+    k1_dev = prof["hand_kernels_ms_per_step"].get("march_shade_kernel", 0.0)
+    k1_frame = march_bound(
+        (40.0 + 7.0) * pixels * m, ro, rd, params[0], params[2],
+        torch.empty((pixels, 4), device=dev))
+    # K1 on the chunk of the frame with the most lit pixels: against its
+    # plain version (the larger of the fixed tolerances and 5x the plain
+    # version's own gap to float64), timed.
+    c, r = params[0], params[2]
+    lit = (imgs[0].sum(1) > 0).reshape(per_frame, -1).sum(1)
+    i0 = int(lit.argmax()) * VIEWER_CHUNK
+    args = (ro[i0:i0 + VIEWER_CHUNK], rd[i0:i0 + VIEWER_CHUNK], c, r,
+            view.VIEW_K)
+    t_k, n_k = k1.march_shade(*args)
+    t_p, n_p = k1.march_shade_plain(*args)
+    t_64, n_64 = k1.march_shade_plain(*(a.double() for a in args[:4]),
+                                      view.VIEW_K)
+    errs = march_errors(torch, t_k, n_k, t_p, n_p)
+    noise = march_noise_tols(torch, t_p, n_p, t_64, n_64)
+    tols = {key: max(tol, noise[key]) for key, tol in MARCH_TOLS.items()}
+    for key, tol in tols.items():
+        check_close(failures, f"K1 viewer chunk {key}", errs[key], tol)
+    chunk = dict(
+        first_ray=i0, max_abs_err=errs["max_abs_err_t_hit"], tol=tols,
+        errs=errs,
+        ms=time_ms(torch, lambda: k1.march_shade(*args)),
+        device_ms=graph_ms(torch, lambda: k1.march_shade(*args), launches=5),
+        plain_ms=time_ms(torch, lambda: k1.march_shade_plain(*args),
+                         reps=3),
+        **march_bound(47.0 * VIEWER_CHUNK * m, *args[:4], t_k, n_k))
+    emit("viewer_train", scene=os.path.relpath(VIEWER_SCENE, ROOT), spheres=m,
+         size=VIEWER_SIZE, chunk=VIEWER_CHUNK, frames=n_frames,
+         launches=launches, seconds=seconds, vs_plain_march=gaps_train,
+         lit_share=float((imgs[0].sum(1) > 0).mean()),
+         frame_ms=wall_ms(torch, lambda: frame("train"), 3),
+         plain_march_frame_ms=plain_frame_ms,
+         device_busy_ms_per_frame=prof["device_busy_ms_per_step"],
+         device_events_per_frame=prof["device_events_per_step"],
+         top_kernels_ms_per_frame=prof["top_kernels_ms_per_step"],
+         k1_device_ms_per_frame=k1_dev,
+         k1_bound_ms_per_frame=k1_frame["bound_ms"],
+         k1_bound_by=k1_frame["bound_by"],
+         k1_share_of_bound=k1_frame["bound_ms"] / k1_dev if k1_dev else 0.0,
+         k1_chunk=chunk)
+    if k1_dev <= 0.0:
+        raise AssertionError("no march_shade_kernel time in the viewer trace")
+
+    # (b) The viewer model (plain PyTorch), float32 against float64 at 128²;
+    # frame times of both models.
+    ro_s, rd_s = create_camera_rays(128, 128, VIEWER_EYE, [0.0, 0.0, 0.0],
+                                    50.0, device=dev)
+    f32 = view._viewer_shade(ro_s, rd_s, *params).cpu().numpy()
+    f64 = view._viewer_shade(ro_s.double(), rd_s.double(),
+                             *(p.double() for p in params)).cpu().numpy()
+    gaps_64 = u8_gaps(f32, f64)
+    check_u8(failures, "viewer-model frame, float32 vs float64", gaps_64)
+    frame_ms = {model: {size: wall_ms(torch, lambda: frame(model, size),
+                                      2 if model == "viewer" else 3)
+                        for size in (96, SERVER_SIZE, VIEWER_SIZE)}
+                for model in ("train", "viewer")}
+    emit("viewer_viewer", size_float64_check=128, vs_float64=gaps_64,
+         lit_share=float((f32.sum(1) > 0).mean()), frame_ms=frame_ms,
+         peak_memory_gb_in_phase=torch.cuda.max_memory_allocated() / 1e9)
+
+    # (c) The HTTP viewer, one server per model on a free localhost port.
+    served = {}
+    for model in ("viewer", "train"):
+        state = _ViewerState(VIEWER_SCENE, SERVER_SIZE, model, device=dev)
+        srv = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{srv.server_port}"
+        try:
+            page = urllib.request.urlopen(base + "/", timeout=60).read()
+            info = json.loads(urllib.request.urlopen(base + "/scene",
+                                                     timeout=60).read())
+            got = {}
+            for q, path, reps in (("low", "/frame?q=low", 4),
+                                  ("full", "/frame", 3 if model == "train"
+                                   else 2)):
+                times = []
+                for _ in range(reps):
+                    t0 = time.perf_counter()
+                    png = urllib.request.urlopen(base + path,
+                                                 timeout=300).read()
+                    times.append(1000.0 * (time.perf_counter() - t0))
+                png_path = os.path.join(tmp, f"viewer_{model}_{q}.png")
+                with open(png_path, "wb") as f:
+                    f.write(png)
+                img = read_png(png_path)
+                got[q] = {"shape": list(img.shape),
+                          "lit_share": float((img.sum(2) > 0).mean()),
+                          "median_ms": statistics.median(times[1:]),
+                          "first_ms": times[0]}
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            thread.join(timeout=60)
+        if thread.is_alive():
+            raise AssertionError("the viewer server thread did not stop")
+        if b"ArrowLeft" not in page or info["num_spheres"] != m:
+            raise AssertionError(f"viewer server ({model}): bad page or "
+                                 f"/scene {info}")
+        for q, size in (("low", state.low_size), ("full", SERVER_SIZE)):
+            if got[q]["shape"] != [size, size, 3]:
+                raise AssertionError(f"{model} {q} frame {got[q]['shape']}")
+            if got[q]["lit_share"] <= 0.1:
+                raise AssertionError(f"{model} {q} frame lit share "
+                                     f"{got[q]['lit_share']}")
+        served[model] = got
+    emit("viewer_server", size=SERVER_SIZE, frames=served)
+
+    # (d) One frame under the profiler, annotated.
+    trace_dir = os.path.join(tmp, "viewer_trace")
+    with profiling.trace(trace_dir):
+        with profiling.annotate("viewer_frame"):
+            frame("train")
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    found = {"viewer_frame": sum(e.get("name") == "viewer_frame"
+                                 for e in events),
+             "march_shade_kernel": sum(
+                 e.get("cat") == "kernel"
+                 and "march_shade_kernel" in e.get("name", "")
+                 for e in events)}
+    emit("viewer_trace", events=len(events), found=found)
+    if found["viewer_frame"] < 1 or found["march_shade_kernel"] != per_frame:
+        raise AssertionError(f"the viewer trace holds {found}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    shape = {f"viewer_{key}": chunk[key] for key in (
+        "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms")}
+    shape.update(viewer_chunk_rays=VIEWER_CHUNK, viewer_slots=m,
+                 viewer_frame_device_ms=k1_dev,
+                 viewer_frame_bound_ms=k1_frame["bound_ms"],
+                 viewer_launches_per_frame=per_frame)
+    return launches, shape
+
+
 def dist_rank(rank: int, world: int, port: int, path: str,
               device: str = "cuda:0") -> None:
     """One rank of the 2-rank model-axis march (spawned, gloo, both ranks on
@@ -2030,10 +2293,13 @@ def main() -> int:
         launches_guard = phase_guard_c1(torch, tmp)
         launches_c5, c5_shape = phase_c5(torch, dev, tmp)
         launches_dist, union_shape = phase_distributed(torch, dev, tmp)
+        launches_viewer, viewer_shape = phase_viewer(torch, dev, tmp)
     kernels["culled_march"].update(refine_shape, **c5_shape, **union_shape)
+    kernels["march_shade"].update(viewer_shape)
     # ``launches``: the two training paths (phases 6 and 8);
     # ``launches_quality``: the refine and guard paths (phases 9 and 10);
-    # ``launches_c5`` and ``launches_distributed``: phases 11 and 12.
+    # ``launches_c5``, ``launches_distributed`` and ``launches_viewer``:
+    # phases 11, 12 and 13.
     # Every path had its counts set to 0 just before it and read after it,
     # and every kernel is counted on one of the two quality paths.
     quality = {**launches_guard, **launches_refine}
@@ -2044,7 +2310,8 @@ def main() -> int:
         {"name": k, "route": "cuda", "source": SOURCES[k][0],
          "replaces": SOURCES[k][1], "launches": launches[k],
          "launches_quality": quality[k], "launches_c5": launches_c5[k],
-         "launches_distributed": launches_dist[k], **kernels[k]}
+         "launches_distributed": launches_dist[k],
+         "launches_viewer": launches_viewer[k], **kernels[k]}
         for k in SOURCES]}), flush=True)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

@@ -1,5 +1,7 @@
 """The port and chip_smoke.py import and render with JAX blocked, and load no
-module of the JAX package: config and utils are the port's own copies."""
+module of the JAX package: config and utils are the port's own copies.
+Pillow and imageio are blocked too: only the capture tools and the viewer's
+--video use them, inside the functions that need them."""
 
 import os
 import re
@@ -11,6 +13,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SCRIPT = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
+sys.modules["PIL"] = None
+sys.modules["imageio"] = None
 import torch
 torch.set_num_threads(1)
 import burn_raymarching_tpu_torch as pkg

@@ -15,6 +15,7 @@ import dataclasses
 import datetime
 import os
 import pickle
+import tempfile
 import traceback
 
 import numpy as np
@@ -51,8 +52,12 @@ def run_ranks(tmp_path, world: int, fn, *args,
     traceback."""
     import torch.multiprocessing as mp
 
-    out_dir = str(tmp_path / f"ranks_{fn.__name__}_{os.getpid()}")
-    os.makedirs(out_dir, exist_ok=True)
+    # A fresh directory for every call: a FileStore file left by an earlier
+    # group (another world size of a cached fixture in the same worker)
+    # would hand the new ranks its stale addresses, and they hang.
+    os.makedirs(tmp_path, exist_ok=True)
+    out_dir = tempfile.mkdtemp(prefix=f"ranks_{fn.__name__}_",
+                               dir=str(tmp_path))
     store = os.path.join(out_dir, "store")
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_rank_main,
