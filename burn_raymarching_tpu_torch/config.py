@@ -5,9 +5,11 @@ The port's own copy of the JAX package's four dataclasses
 validation and helper methods, so the CLIs keep their flags and a
 configuration means the same in both packages. Nothing is shared:
 tests/test_torch_config_utils.py holds the two copies against each other.
-In the port ``use_pallas`` means "use the hand-written CUDA kernels", and
-fields that only steer the JAX package's compiled step (``steps_per_call``,
-``scan_unroll``) are accepted and ignored by the eager training loop.
+In the port ``use_pallas`` means "use the hand-written CUDA kernels";
+``steps_per_call`` is the chunk of steps between host reads (train/loop.py)
+and ``scan_unroll`` the number of steps recorded in one CUDA graph
+(train/chunk.py), where the JAX package has one compiled scan of that many
+steps and its unroll factor.
 
 The original hardcodes every hyperparameter as a compile-time constant
 (reference: src/bin/train.rs:30,128-131,161-166,174-176,193-197 and
@@ -257,10 +259,14 @@ class TrainConfig:
     # Fused shade/composite kernel with a hand-written backward for the
     # gradient path (ops/cuda/shade_kernel.py); active when use_pallas is.
     use_fused_shade: bool = True
-    # Steps per compiled device call in the JAX package (0 = auto). Kept so
-    # configurations and CLI flags carry over; the eager loop ignores it.
+    # Steps per chunk (the JAX package's steps per device call): the repulsion
+    # tables are rebuilt at each chunk start and the loss is read only at
+    # chunk ends. Must divide steps_per_stage, else 1. 0 = auto: the largest
+    # divisor of steps_per_stage up to 100 (Trainer) or 350
+    # (DistributedTrainer), the JAX package's targets.
     steps_per_call: int = 0
-    # Unroll factor of the JAX package's step chunk; ignored here.
+    # Steps recorded in one CUDA graph (the JAX package's scan unroll
+    # factor); a chunk replays that graph steps_per_call / scan_unroll times.
     scan_unroll: int = 1
     # Coherent-tile culling (ops/culling.py) for large primitive counts:
     # batch indices are sorted (order-free for a with-replacement mean) and

@@ -40,12 +40,22 @@
 #define CM_RAYS 2
 #define CM_CHUNK 4096
 
+// The soft-min sharpness of the launch, copied here from device memory on
+// the launch's stream (culled_march_launch), so that the kernel reads it as
+// it read a launch parameter: from the constant bank. Read through a
+// pointer into a register it cost K3 4-5% on an H100 (bench_kernels, K3
+// warm 0.195 -> 0.204 ms at config 4's shape), the copy less than the noise.
+// The symbol is shared by every launch of the process: launches that
+// overlap on two streams must carry the same k (the port launches on one).
+__constant__ float c_k;
+
 __global__ void __launch_bounds__(CM_WARPS * 32)
 culled_march_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
                     const float* __restrict__ t0,
                     const float* __restrict__ prim, int t_dim, int kk,
-                    float k, int num_steps, float normal_eps,
+                    int num_steps, float normal_eps,
                     float* __restrict__ t_out, float* __restrict__ n_out) {
+  const float k = c_k;
   extern __shared__ float4 smem[];  // float4 cq[cap], then float rr[cap]
   __shared__ int n_live;
   MarchTable tab;
@@ -72,12 +82,15 @@ culled_march_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
                                  num_steps, normal_eps, t_out, n_out);
 }
 
-// ro, rd [b, t_dim, 3]; t0 [b, t_dim] or null; prim [b, kk, 5]. Writes
-// t_out [b, t_dim] and n_out [b, t_dim, 3]. Returns a CUDA error code.
+// ro, rd [b, t_dim, 3]; t0 [b, t_dim] or null; prim [b, kk, 5]; k [1] the
+// soft-min sharpness in device memory, copied to c_k on the stream before
+// the kernel runs (the TPU kernel's SMEM operand; a captured launch copies
+// it again at every replay). Writes t_out [b, t_dim] and n_out
+// [b, t_dim, 3]. Returns a CUDA error code.
 extern "C" int culled_march_launch(const float* ro, const float* rd,
                                    const float* t0, const float* prim, int b,
-                                   int t_dim, int kk, float k, int num_steps,
-                                   float normal_eps, float* t_out,
+                                   int t_dim, int kk, const float* k,
+                                   int num_steps, float normal_eps, float* t_out,
                                    float* n_out, void* stream) {
   if (b < 1 || t_dim < 1 || kk < 1 || b > 65535)
     return (int)cudaErrorInvalidValue;
@@ -88,9 +101,13 @@ extern "C" int culled_march_launch(const float* ro, const float* rd,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
+  const cudaError_t err =
+      cudaMemcpyToSymbolAsync(c_k, k, sizeof(float), 0,
+                              cudaMemcpyDeviceToDevice, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   const int per_block = CM_WARPS * CM_RAYS;
   const dim3 grid((t_dim + per_block - 1) / per_block, b);
   culled_march_kernel<<<grid, CM_WARPS * 32, smem, (cudaStream_t)stream>>>(
-      ro, rd, t0, prim, t_dim, kk, k, num_steps, normal_eps, t_out, n_out);
+      ro, rd, t0, prim, t_dim, kk, num_steps, normal_eps, t_out, n_out);
   return (int)cudaGetLastError();
 }

@@ -46,9 +46,11 @@ template <int L, bool EXIT>
 __global__ void __launch_bounds__(MS_WARPS * 32)
 march_shade_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
                    const float* __restrict__ t0,
-                   const float* __restrict__ prim, int n, int m, float k,
-                   int num_steps, float normal_eps, float* __restrict__ t_out,
+                   const float* __restrict__ prim, int n, int m,
+                   const float* __restrict__ kp, int num_steps,
+                   float normal_eps, float* __restrict__ t_out,
                    float* __restrict__ n_out) {
+  const float k = __ldg(kp);
   __shared__ float4 cq[MS_CHUNK];
   __shared__ float rr[MS_CHUNK];
   __shared__ int n_live;
@@ -100,7 +102,7 @@ static int pick_lanes(int n, int m) {
 
 template <int L, bool EXIT>
 static int launch_lanes(const float* ro, const float* rd, const float* t0,
-                        const float* prim, int n, int m, float k,
+                        const float* prim, int n, int m, const float* k,
                         int num_steps, float normal_eps, float* t_out,
                         float* n_out, cudaStream_t stream) {
   const long long per_block = (long long)MS_WARPS * (32 / L) * MS_RAYS;
@@ -111,12 +113,14 @@ static int launch_lanes(const float* ro, const float* rd, const float* t0,
 }
 
 // ro, rd [n,3]; t0 [n] or null; prim [m,5] rows (cx, cy, cz, |c|^2, r*k) with
-// 1e30 in the |c|^2 of masked slots (march_pack_launch writes it). Writes
+// 1e30 in the |c|^2 of masked slots (march_pack_launch writes it); k [1] the
+// soft-min sharpness in device memory, read when the kernel runs (the TPU
+// kernel's SMEM operand), so a captured launch follows its value. Writes
 // t_out [n], n_out [n,3]. ``early_exit`` != 0 picks the EXIT instantiation.
 // Returns a CUDA error code.
 extern "C" int march_shade_launch(const float* ro, const float* rd,
                                   const float* t0, const float* prim, int n,
-                                  int m, float k, int num_steps,
+                                  int m, const float* k, int num_steps,
                                   float normal_eps, int early_exit,
                                   float* t_out, float* n_out, void* stream) {
   if (n < 1 || m < 1) return (int)cudaErrorInvalidValue;
@@ -144,13 +148,15 @@ extern "C" int march_shade_launch(const float* ro, const float* rd,
 // Packs K1's table in one launch: out [m,5] = (cx, cy, cz, |c|^2, r*k), with
 // |c|^2 = (x*x + y*y) + z*z rounded after every operation (no FMA
 // contraction, so it is bitwise the plain version's, march_table) and 1e30
-// where ``mask`` (bytes, may be null) is 0.
+// where ``mask`` (bytes, may be null) is 0; k [1] in device memory.
 __global__ void march_pack_kernel(const float* __restrict__ centers,
                                   const float* __restrict__ radii,
                                   const unsigned char* __restrict__ mask,
-                                  int m, float k, float* __restrict__ out) {
+                                  int m, const float* __restrict__ kp,
+                                  float* __restrict__ out) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= m) return;
+  const float k = __ldg(kp);
   const float x = centers[3 * j], y = centers[3 * j + 1],
               z = centers[3 * j + 2];
   const float csq = __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)),
@@ -163,8 +169,8 @@ __global__ void march_pack_kernel(const float* __restrict__ centers,
 }
 
 extern "C" int march_pack_launch(const float* centers, const float* radii,
-                                 const unsigned char* mask, int m, float k,
-                                 float* out, void* stream) {
+                                 const unsigned char* mask, int m,
+                                 const float* k, float* out, void* stream) {
   if (m < 1) return (int)cudaErrorInvalidValue;
   march_pack_kernel<<<(m + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
       centers, radii, mask, m, k, out);

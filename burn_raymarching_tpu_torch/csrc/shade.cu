@@ -225,8 +225,9 @@ template <int L>
 __global__ void __launch_bounds__(SK_WARPS * 32)
 shade_fwd_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
                  const float* __restrict__ t, const float* __restrict__ nrm,
-                 const float4* __restrict__ tab, int n, int m, float k,
-                 float* __restrict__ out) {
+                 const float4* __restrict__ tab, int n, int m,
+                 const float* __restrict__ kp, float* __restrict__ out) {
+  const float k = __ldg(kp);
   constexpr int G = 32 / L;
   const int lane = threadIdx.x & 31;
   const long long r =
@@ -267,9 +268,11 @@ __global__ void __launch_bounds__(SK_WARPS * 32)
 shade_bwd_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
                  const float* __restrict__ t, const float* __restrict__ nrm,
                  const float4* __restrict__ tab, const float* __restrict__ gout,
-                 int n, int m, float k, int rays_per_block, int reduce,
-                 float* __restrict__ partial, float* __restrict__ scratch,
-                 int* __restrict__ tickets, float* __restrict__ total) {
+                 int n, int m, const float* __restrict__ kp,
+                 int rays_per_block, int reduce, float* __restrict__ partial,
+                 float* __restrict__ scratch, int* __restrict__ tickets,
+                 float* __restrict__ total) {
+  const float k = __ldg(kp);
   extern __shared__ float acc[];  // [warps * G][stride]
   __shared__ int flag;
   constexpr int G = 32 / L;
@@ -507,11 +510,13 @@ extern "C" int shade_pack_launch(const float* centers, const float* radii,
     CASE(32);                     \
   }
 
-// ro, rd, nrm [n,3], t [n], tab from shade_pack_launch; out [n,3]. ``lanes``
-// per ray, 0 to let pick_lanes choose. Returns a CUDA error code.
+// ro, rd, nrm [n,3], t [n], tab from shade_pack_launch; k [1] the soft-min
+// sharpness in device memory, read when the kernel runs (the TPU kernel packs
+// it into its table as a traced scalar); out [n,3]. ``lanes`` per ray, 0 to
+// let pick_lanes choose. Returns a CUDA error code.
 extern "C" int shade_fwd_launch(const float* ro, const float* rd,
                                 const float* t, const float* nrm,
-                                const float* tab, int n, int m, float k,
+                                const float* tab, int n, int m, const float* k,
                                 int lanes, float* out, void* stream) {
   if (n < 1 || m < 1) return (int)cudaErrorInvalidValue;
   if (lanes == 0) lanes = pick_lanes(n, m, SF_COLUMNS_PER_LANE);
@@ -531,9 +536,9 @@ extern "C" int shade_fwd_launch(const float* ro, const float* rd,
 template <int L>
 static int launch_bwd(const BwdPlan& plan, const float* ro, const float* rd,
                       const float* t, const float* nrm, const float* tab,
-                      const float* g, int n, int m, float k, int reduce,
-                      float* partial, float* scratch, int* tickets,
-                      float* total, cudaStream_t stream) {
+                      const float* g, int n, int m, const float* k,
+                      int reduce, float* partial, float* scratch,
+                      int* tickets, float* total, cudaStream_t stream) {
   // The opt-in for more than 48 KB of dynamic shared memory is made once
   // per size that exceeds what was allowed before, not per launch.
   static size_t allowed = 48 * 1024;
@@ -550,18 +555,18 @@ static int launch_bwd(const BwdPlan& plan, const float* ro, const float* rd,
   return (int)cudaGetLastError();
 }
 
-// g [n,3] is the cotangent of out. With pitch = 7m + 4 rounded up to 4:
-// partial [shade_bwd_blocks(n, m, lanes), pitch]; scratch [one row of pitch
-// floats per node of the sum tree] and tickets [one int per node; zero,
-// left zero]; with ``reduce`` the sum of the partial rows is written to
-// total [pitch + 4] and d_light to its last 4 floats, without it only
-// ``partial``. Returns a CUDA error code.
+// g [n,3] is the cotangent of out; k [1] as for the forward. With pitch =
+// 7m + 4 rounded up to 4: partial [shade_bwd_blocks(n, m, lanes), pitch];
+// scratch [one row of pitch floats per node of the sum tree] and tickets
+// [one int per node; zero, left zero]; with ``reduce`` the sum of the
+// partial rows is written to total [pitch + 4] and d_light to its last 4
+// floats, without it only ``partial``. Returns a CUDA error code.
 extern "C" int shade_bwd_launch(const float* ro, const float* rd,
                                 const float* t, const float* nrm,
                                 const float* tab, const float* g, int n, int m,
-                                float k, int lanes, int reduce, float* partial,
-                                float* scratch, int* tickets, float* total,
-                                void* stream) {
+                                const float* k, int lanes, int reduce,
+                                float* partial, float* scratch, int* tickets,
+                                float* total, void* stream) {
   BwdPlan plan;
   const int err = plan_bwd(n, m, lanes, &plan);
   if (err != 0) return err;

@@ -4,8 +4,9 @@ burn_raymarching_tpu/data/dataset.py).
 A batch is floor(batch * uniform_ratio) uniform picks over all pixels plus
 (batch - that) picks uniform over the fg set, with the fg-boost count capped
 at |fg| when the fg set is small. Both pools sample with replacement.
-Sampling uses an explicit ``torch.Generator`` on the dataset's device, so
-no per-step host round trip is needed.
+Sampling uses an explicit ``torch.Generator`` on the dataset's device, and
+a tensor ``uniform_ratio`` (the training step's) sizes the two pools on the
+device, so no per-step host round trip is needed.
 """
 
 from __future__ import annotations
@@ -24,16 +25,32 @@ def compute_fg_indices(targets: np.ndarray, threshold: float = 0.05):
     return padded, int(fg.shape[0])
 
 
+def uniform_count(batch_size: int, n_fg: int, uniform_ratio):
+    """Slots of a batch drawn over all pixels, the JAX package's rule:
+    floor(batch · uniform_ratio) in float32, the rest from the fg pool but
+    at most |fg| of them. A float ratio gives an int; a float32 tensor
+    ratio an int64 tensor on its device, computed there (no host read).
+    ``n_fg`` stays a host int: it is fixed by the dataset and bounds the fg
+    draw."""
+    if not torch.is_tensor(uniform_ratio):
+        n_req = int(np.floor(np.float32(batch_size)
+                             * np.float32(uniform_ratio)))
+        return batch_size - (min(batch_size - n_req, n_fg) if n_fg > 0
+                             else 0)
+    n_req = torch.floor(uniform_ratio * float(batch_size)).to(torch.int64)
+    if n_fg <= 0:
+        return torch.full_like(n_req, batch_size)
+    return batch_size - torch.clamp(batch_size - n_req, max=n_fg)
+
+
 def sample_batch_indices(generator: torch.Generator, n_total: int,
                          fg_indices: torch.Tensor, n_fg: int,
-                         batch_size: int, uniform_ratio: float
-                         ) -> torch.Tensor:
-    """Batch index sampler → [batch_size] int64 on fg_indices' device."""
+                         batch_size: int, uniform_ratio) -> torch.Tensor:
+    """Batch index sampler → [batch_size] int64 on fg_indices' device.
+    ``uniform_ratio`` is a float or a float32 tensor (``uniform_count``);
+    both give the same indices from the same generator."""
     dev = fg_indices.device
-    n_uniform_req = int(np.floor(np.float32(batch_size)
-                                 * np.float32(uniform_ratio)))
-    n_fg_boost = min(batch_size - n_uniform_req, n_fg) if n_fg > 0 else 0
-    n_uniform = batch_size - n_fg_boost
+    n_uniform = uniform_count(batch_size, n_fg, uniform_ratio)
     uni = torch.randint(0, n_total, (batch_size,), generator=generator,
                         device=dev)
     fg_pos = torch.randint(0, max(n_fg, 1), (batch_size,),

@@ -127,6 +127,56 @@ def ptr(x) -> int | None:
     return None if x is None else x.data_ptr()
 
 
+# Python floats already written to the device, by (device, value): a
+# wrapper called with a float pays no copy kernel after the first call.
+_SCALARS: dict = {}
+
+
+def device_scalar(x, device: torch.device) -> torch.Tensor:
+    """A scalar kernel operand (the soft-min sharpness) as the [1] float32
+    tensor on ``device`` that the kernel reads when it runs, as the TPU
+    kernels read an SMEM operand: a one-element tensor on ``device`` is
+    passed through as a view of its memory (what a CUDA graph replay
+    re-reads); a Python float is written to the device once and the tensor
+    kept for later calls with the same value (never one made during a
+    graph capture, whose memory the graph owns). Nothing writes into a
+    kept tensor."""
+    if not torch.is_tensor(x):
+        key = (device, float(x))
+        t = _SCALARS.get(key)
+        if t is None:
+            t = torch.full((1,), float(x), dtype=torch.float32,
+                           device=device)
+            if not torch.cuda.is_current_stream_capturing():
+                _SCALARS[key] = t
+        return t
+    if x.device != device or x.numel() != 1 or x.dtype != torch.float32:
+        raise ValueError(f"a scalar operand must be one float32 value on "
+                         f"{device}, got {x.dtype} {tuple(x.shape)} on "
+                         f"{x.device}")
+    return x.detach().reshape(1)
+
+
+# Every wrapper that launches a kernel of csrc/, in the order they are
+# defined. ``fn.launches`` counts the launches of its kernel: the wrapper
+# adds one per launch, and a CUDA graph replay, which launches the kernels
+# its capture recorded without calling any wrapper, adds what the capture
+# recorded (train/chunk.py).
+COUNTED: list = []
+
+
+def counted(fn):
+    """Register a kernel wrapper with a launch count of 0."""
+    fn.launches = 0
+    COUNTED.append(fn)
+    return fn
+
+
+def launch_counts() -> dict:
+    """{wrapper: launches} of every counted wrapper."""
+    return {fn: fn.launches for fn in COUNTED}
+
+
 def check_cuda_f32(name: str, x: torch.Tensor, shape: tuple,
                    device: torch.device) -> None:
     """Validate a kernel argument: device, dtype, shape, contiguity."""

@@ -31,7 +31,7 @@ _F = ctypes.c_float
 def _launcher():
     lib = build.load_library("culled_march")
     return build.bind(lib, "culled_march_launch", [
-        _P, _P, _P, _P, _I, _I, _I, _F, _I, _F, _P, _P, _P])
+        _P, _P, _P, _P, _I, _I, _I, _P, _I, _F, _P, _P, _P])
 
 
 def culled_table(cs: torch.Tensor, rs: torch.Tensor, qs: torch.Tensor
@@ -43,6 +43,7 @@ def culled_table(cs: torch.Tensor, rs: torch.Tensor, qs: torch.Tensor
                       rs.detach().float()[:, :, None]], dim=2)
 
 
+@build.counted
 @torch.no_grad()
 def culled_march_normals(ro3: torch.Tensor, rd3: torch.Tensor,
                          cs: torch.Tensor, rs: torch.Tensor, qs: torch.Tensor,
@@ -53,7 +54,8 @@ def culled_march_normals(ro3: torch.Tensor, rd3: torch.Tensor,
 
     ro3, rd3 [B, T, 3] tile-coherent rays; cs [B, K, 3], rs, qs [B, K] the
     gathered per-tile tables; ``t_init`` [B, T, 1] warm-starts the march.
-    ``smooth_k`` should be a Python float on the training path.
+    ``smooth_k`` is a Python float or a one-element float32 tensor on the
+    rays' device, which the kernel reads when it runs.
     """
     if ro3.device.type == "cpu":
         return culled_march_normals_xla(ro3, rd3, cs, rs, qs, smooth_k,
@@ -69,6 +71,7 @@ def culled_march_normals(ro3: torch.Tensor, rd3: torch.Tensor,
     build.check_cuda_f32("rd3", rd3, (b, t_dim, 3), dev)
     if k_dim < 1:
         raise ValueError("culled_march_normals needs at least one table slot")
+    k = build.device_scalar(smooth_k, dev)
     prim = culled_table(cs, rs, qs)
     build.check_cuda_f32("prim", prim, (b, k_dim, 5), dev)
     t0 = None
@@ -80,12 +83,9 @@ def culled_march_normals(ro3: torch.Tensor, rd3: torch.Tensor,
     if b * t_dim == 0:
         return t, normal
     err = _launcher()(build.ptr(ro3), build.ptr(rd3), build.ptr(t0),
-                      build.ptr(prim), b, t_dim, k_dim, float(smooth_k),
+                      build.ptr(prim), b, t_dim, k_dim, build.ptr(k),
                       int(num_steps), float(normal_eps), build.ptr(t),
                       build.ptr(normal), build.stream_ptr(dev))
     build.check(err, "culled_march kernel launch")
     culled_march_normals.launches += 1
     return t, normal
-
-
-culled_march_normals.launches = 0

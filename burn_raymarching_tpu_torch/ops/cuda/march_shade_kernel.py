@@ -41,8 +41,8 @@ _F = ctypes.c_float
 def _launchers():
     lib = build.load_library("march_shade")
     march = build.bind(lib, "march_shade_launch", [
-        _P, _P, _P, _P, _I, _I, _F, _I, _F, _I, _P, _P, _P])
-    pack = build.bind(lib, "march_pack_launch", [_P, _P, _P, _I, _F, _P, _P])
+        _P, _P, _P, _P, _I, _I, _P, _I, _F, _I, _P, _P, _P])
+    pack = build.bind(lib, "march_pack_launch", [_P, _P, _P, _I, _P, _P, _P])
     return march, pack
 
 
@@ -113,10 +113,11 @@ def march_table(centers: torch.Tensor, radii: torch.Tensor,
     c_sq = (x * x + y * y) + z * z
     if mask is not None:
         c_sq = torch.where(mask.reshape(m).bool(), c_sq, 1e30)
-    rk = radii.detach().reshape(m).float() * float(smooth_k)
+    rk = radii.detach().reshape(m).float() * smooth_k
     return torch.cat([c, c_sq[:, None], rk[:, None]], dim=1)
 
 
+@build.counted
 @torch.no_grad()
 def pack_march_table(centers: torch.Tensor, radii: torch.Tensor,
                      mask: Optional[torch.Tensor], smooth_k) -> torch.Tensor:
@@ -136,18 +137,17 @@ def pack_march_table(centers: torch.Tensor, radii: torch.Tensor,
         if mask_u8.device != dev or not mask_u8.is_contiguous():
             raise ValueError("mask must be a contiguous tensor on the "
                              "centers' device")
+    k = build.device_scalar(smooth_k, dev)
     out = torch.empty((m, 5), dtype=torch.float32, device=dev)
     _, launch_pack = _launchers()
     err = launch_pack(build.ptr(c), build.ptr(r), build.ptr(mask_u8), m,
-                      float(smooth_k), build.ptr(out), build.stream_ptr(dev))
+                      build.ptr(k), build.ptr(out), build.stream_ptr(dev))
     build.check(err, "march_pack kernel launch")
     pack_march_table.launches += 1
     return out
 
 
-pack_march_table.launches = 0
-
-
+@build.counted
 @torch.no_grad()
 def march_shade(ray_org: torch.Tensor, ray_dir: torch.Tensor,
                 centers: torch.Tensor, radii: torch.Tensor, smooth_k,
@@ -158,9 +158,10 @@ def march_shade(ray_org: torch.Tensor, ray_dir: torch.Tensor,
     """Fused detached march + normals → (t [N,1], normal [N,3]).
 
     ``t_init`` [N,1] warm-starts the march; pair it with a reduced
-    ``num_steps``. ``smooth_k`` should be a Python float on the training
-    path (a CUDA tensor is read back to the host). ``early_exit``: see the
-    module docstring.
+    ``num_steps``. ``smooth_k`` is a Python float or a one-element float32
+    tensor on the rays' device, which the kernels read when they run (the
+    training step's, recorded once in a CUDA graph and replayed).
+    ``early_exit``: see the module docstring.
     """
     if ray_org.device.type == "cpu":
         return march_shade_plain(ray_org, ray_dir, centers, radii, smooth_k,
@@ -179,7 +180,8 @@ def march_shade(ray_org: torch.Tensor, ray_dir: torch.Tensor,
     if n == 0:
         return (torch.empty((0, 1), dtype=torch.float32, device=dev),
                 torch.empty((0, 3), dtype=torch.float32, device=dev))
-    prim = pack_march_table(centers, radii, mask, smooth_k)
+    k = build.device_scalar(smooth_k, dev)
+    prim = pack_march_table(centers, radii, mask, k)
     t0 = None
     if t_init is not None:
         t0 = t_init.detach()
@@ -188,13 +190,10 @@ def march_shade(ray_org: torch.Tensor, ray_dir: torch.Tensor,
     normal = torch.empty((n, 3), dtype=torch.float32, device=dev)
     launch_march, _ = _launchers()
     err = launch_march(build.ptr(ray_org), build.ptr(ray_dir), build.ptr(t0),
-                       build.ptr(prim), n, m, float(smooth_k), int(num_steps),
+                       build.ptr(prim), n, m, build.ptr(k), int(num_steps),
                        float(normal_eps), int(bool(early_exit)),
                        build.ptr(t), build.ptr(normal),
                        build.stream_ptr(dev))
     build.check(err, "march_shade kernel launch")
     march_shade.launches += 1
     return t, normal
-
-
-march_shade.launches = 0

@@ -78,6 +78,7 @@ def _slices(c, g, wg, ca, include_far: bool, slices: int) -> int:
     return n
 
 
+@build.counted
 def launch_rep_fwd(cs, nb_cs, cents, w, nb_w, mi, nbm, far_w,
                    include_far: bool, slices: int = 0, reduce: bool = True):
     """One forward launch → (sum, 0-dim; per-block partial sums [C·S]).
@@ -100,6 +101,7 @@ def launch_rep_fwd(cs, nb_cs, cents, w, nb_w, mi, nbm, far_w,
     return total, partial
 
 
+@build.counted
 def launch_rep_bwd(cs, nb_cs, cents, w, nb_w, mi, nbm, far_w, g_out,
                    include_far: bool, slices: int = 0, reduce: bool = True):
     """One backward launch → (d_cs [3,C,G], d_nb_cs [3,C,W·G], d_cents
@@ -137,10 +139,6 @@ def launch_rep_bwd(cs, nb_cs, cents, w, nb_w, mi, nbm, far_w, g_out,
     build.check(err, "repulsion backward kernel launch")
     launch_rep_bwd.launches += 1
     return d_cs, d_nb, d_cents, part
-
-
-launch_rep_fwd.launches = 0
-launch_rep_bwd.launches = 0
 
 
 class RepulsionSum(torch.autograd.Function):

@@ -24,7 +24,6 @@ from burn_raymarching_tpu_torch.ops.cuda import build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_F = ctypes.c_float
 
 
 @functools.cache
@@ -33,9 +32,9 @@ def _lib():
     return {
         "pack": build.bind(lib, "shade_pack_launch", [_P] * 6 + [_I, _P, _P]),
         "fwd": build.bind(lib, "shade_fwd_launch",
-                          [_P] * 5 + [_I, _I, _F, _I, _P, _P]),
+                          [_P] * 5 + [_I, _I, _P, _I, _P, _P]),
         "bwd": build.bind(lib, "shade_bwd_launch",
-                          [_P] * 6 + [_I, _I, _F, _I, _I] + [_P] * 5),
+                          [_P] * 6 + [_I, _I, _P, _I, _I] + [_P] * 5),
         "blocks": build.bind(lib, "shade_bwd_blocks", [_I, _I, _I]),
         "max_m": build.bind(lib, "shade_bwd_max_m", []),
     }
@@ -82,6 +81,7 @@ def shade_table(centers, radii, colors, mask, light, ambient
         torch.stack([l_norm, n_live, zero, zero])[None]], dim=0)
 
 
+@build.counted
 @torch.no_grad()
 def pack_shade_table(centers, radii, colors, mask, light, ambient
                      ) -> torch.Tensor:
@@ -114,22 +114,27 @@ def pack_shade_table(centers, radii, colors, mask, light, ambient
     return out
 
 
-def launch_shade_fwd(ro, rd, t, normal, table, smooth_k: float,
+@build.counted
+def launch_shade_fwd(ro, rd, t, normal, table, smooth_k,
                      lanes: int = 0) -> torch.Tensor:
     """Forward kernel → [N, 3]. ``table`` from ``pack_shade_table``;
-    ``lanes`` per ray (a power of two up to 32), 0 for the kernel's rule."""
+    ``smooth_k`` a Python float or a one-element float32 tensor on the
+    rays' device (read when the kernel runs); ``lanes`` per ray (a power of
+    two up to 32), 0 for the kernel's rule."""
     n, m = ro.shape[0], table.shape[0] // 2 - 1
     out = torch.empty((n, 3), dtype=torch.float32, device=ro.device)
     err = _lib()["fwd"](build.ptr(ro), build.ptr(rd), build.ptr(t),
                         build.ptr(normal), build.ptr(table), n, m,
-                        float(smooth_k), lanes, build.ptr(out),
+                        build.ptr(build.device_scalar(smooth_k, ro.device)),
+                        lanes, build.ptr(out),
                         build.stream_ptr(ro.device))
     build.check(err, "shade forward kernel launch")
     launch_shade_fwd.launches += 1
     return out
 
 
-def launch_shade_bwd(ro, rd, t, normal, table, smooth_k: float, g,
+@build.counted
+def launch_shade_bwd(ro, rd, t, normal, table, smooth_k, g,
                      lanes: int = 0, reduce: bool = True):
     """One backward launch → (d_centers [M,3], d_radii [M], d_colors [M,3],
     d_light [3], d_ambient [1], partial [blocks, 7M+4]). ``partial`` holds
@@ -149,7 +154,9 @@ def launch_shade_bwd(ro, rd, t, normal, table, smooth_k: float, g,
     total, rows = buf[:pitch + 4], buf[pitch + 4:].view(blocks + nodes, pitch)
     err = _lib()["bwd"](build.ptr(ro), build.ptr(rd), build.ptr(t),
                         build.ptr(normal), build.ptr(table), build.ptr(g), n,
-                        m, float(smooth_k), lanes, int(reduce),
+                        m, build.ptr(build.device_scalar(smooth_k,
+                                                         ro.device)),
+                        lanes, int(reduce),
                         build.ptr(rows), build.ptr(rows[blocks:]),
                         build.ptr(build.tickets(ro.device, nodes)),
                         build.ptr(total), build.stream_ptr(ro.device))
@@ -176,11 +183,6 @@ def _bwd_plan(n: int, m: int, lanes: int) -> tuple[int, int]:
     return blocks, build.tree_nodes(blocks)
 
 
-pack_shade_table.launches = 0
-launch_shade_fwd.launches = 0
-launch_shade_bwd.launches = 0
-
-
 class ShadeFused(torch.autograd.Function):
     """Pack + fused shade forward; the backward is one launch.
 
@@ -190,24 +192,26 @@ class ShadeFused(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, ro, rd, t, normal, centers, radii, colors, light,
-                ambient, smooth_k: float, mask):
+                ambient, smooth_k, mask):
         dev = ro.device
         n = ro.shape[0]
         for name, x, shape in (("ro", ro, (n, 3)), ("rd", rd, (n, 3)),
                                ("t", t, (n, 1)), ("normal", normal, (n, 3))):
             build.check_cuda_f32(name, x, shape, dev)
         table = pack_shade_table(centers, radii, colors, mask, light, ambient)
-        out = launch_shade_fwd(ro, rd, t, normal, table, smooth_k)
-        ctx.save_for_backward(ro, rd, t, normal, table)
-        ctx.smooth_k = smooth_k
+        k = build.device_scalar(smooth_k, dev)
+        out = launch_shade_fwd(ro, rd, t, normal, table, k)
+        # The backward reads k from the same memory, as the TPU kernel's
+        # saved table holds its traced scalar.
+        ctx.save_for_backward(ro, rd, t, normal, table, k)
         ctx.shapes = (radii.shape, ambient.shape)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        ro, rd, t, normal, table = ctx.saved_tensors
+        ro, rd, t, normal, table, k = ctx.saved_tensors
         d_centers, d_radii, d_colors, d_light, d_ambient, _ = launch_shade_bwd(
-            ro, rd, t, normal, table, ctx.smooth_k, g.contiguous().float())
+            ro, rd, t, normal, table, k, g.contiguous().float())
         radii_shape, amb_shape = ctx.shapes
         return (None, None, None, None, d_centers,
                 d_radii.reshape(radii_shape), d_colors, d_light,
@@ -222,7 +226,9 @@ def shade_fused(ro: torch.Tensor, rd: torch.Tensor, t: torch.Tensor,
     """Fused shade/composite → [N, 3] with analytic parameter gradients.
 
     centers/radii/colors/light/ambient are the physical (activated)
-    parameters; ``smooth_k`` should be a Python float on the training path.
+    parameters; ``smooth_k`` is a Python float or a one-element float32
+    tensor on the rays' device (the training step's), which the forward
+    and backward kernels read when they run.
     """
     if ro.device.type == "cpu":
         return shade_plain(ro, rd, t, normal, centers, radii, colors, light,
@@ -230,5 +236,4 @@ def shade_fused(ro: torch.Tensor, rd: torch.Tensor, t: torch.Tensor,
     if ro.device.type != "cuda":
         raise ValueError(f"shade_fused: unsupported device {ro.device}")
     return ShadeFused.apply(ro, rd, t.detach(), normal.detach(), centers,
-                            radii, colors, light, ambient, float(smooth_k),
-                            mask)
+                            radii, colors, light, ambient, smooth_k, mask)

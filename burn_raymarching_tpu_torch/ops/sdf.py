@@ -13,6 +13,7 @@ then the summed denominator.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -88,6 +89,13 @@ _NORMAL_TAPS = ((1.0, 0.0, 0.0), (-1.0, 0.0, 0.0), (0.0, 1.0, 0.0),
                 (0.0, -1.0, 0.0), (0.0, 0.0, 1.0), (0.0, 0.0, -1.0))
 
 
+@functools.cache
+def _normal_taps(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """_NORMAL_TAPS [6, 3] on ``device``, copied there once (a copy from
+    host memory cannot be recorded in a CUDA graph)."""
+    return torch.tensor(_NORMAL_TAPS, dtype=dtype, device=device)
+
+
 def scene_normal(p: torch.Tensor, centers: torch.Tensor, radii: torch.Tensor,
                  smooth_k, mask: Optional[torch.Tensor] = None,
                  eps: float = 1e-4, model_axis: Optional[Axis] = None
@@ -97,7 +105,7 @@ def scene_normal(p: torch.Tensor, centers: torch.Tensor, radii: torch.Tensor,
     Finite differences normalized by sqrt(sum(n^2) + 1e-6). p: [N,3] → [N,3].
     """
     n = p.shape[0]
-    offsets = torch.tensor(_NORMAL_TAPS, dtype=p.dtype, device=p.device) * eps
+    offsets = _normal_taps(p.dtype, p.device) * eps
     p_taps = (p[:, None, :] + offsets[None, :, :]).reshape(n * 6, 3)
     d = scene_sdf(p_taps, centers, radii, smooth_k, mask=mask,
                   model_axis=model_axis).reshape(n, 6)

@@ -139,6 +139,21 @@ class DistributedTrainer(Trainer):
 
     # --- step construction -------------------------------------------- #
 
+    def _chunk_target(self) -> int:
+        """The JAX package's sharded auto steps_per_call: each of its chunk
+        boundaries cost ~31 ms, and 350 steps a call kept the overhead
+        under 10% (its config.steps_per_call)."""
+        return 350
+
+    def _replays_graphs(self) -> bool:
+        """The sharded steps run one at a time, also on the card: gloo's
+        collectives (several ranks on one card) cannot be recorded in a
+        CUDA graph, and one card gives one NCCL rank, so a captured NCCL
+        chunk could not be held against anything with a collective that
+        moves data. The JAX package's ``make_sharded_chunk_runner`` is
+        queued in ROADMAP.md."""
+        return False
+
     def _build_step(self, render_overrides=None):
         # K1 marches a whole table and has no union form: the model-sharded
         # dense step is the plain sharded march (no kernel exists for it, in

@@ -11,11 +11,11 @@ on each rank's own rows: its moment buffers sit beside them in
 ``torch.optim`` state, so they shard exactly as the rows do and the
 replicated leaves' moments stay replicated.
 
-There is no scan chunk here (the port's step loop is a plain per-step
-loop, train/loop.py), so JAX's ``make_sharded_chunk_runner`` becomes the
-per-step function of ``make_sharded_train_step``, which
-DistributedTrainer._build_step returns: the shared step body of
-train/step_body.py with the mesh's axes. Its gradients are averaged over
+The JAX package's ``make_sharded_chunk_runner`` scans a chunk of sharded
+steps in one program; here the sharded steps run one at a time
+(DistributedTrainer._replays_graphs), so it becomes the per-step function
+of ``make_sharded_train_step``, which DistributedTrainer._build_step
+returns: the shared step body of train/step_body.py with the mesh's axes. Its gradients are averaged over
 the data axis before Adam, so every data replica takes the same step.
 """
 

@@ -74,9 +74,11 @@ def _tile_normals(p, centers_t, radii_t, c_sq_t, k, eps: float = 1e-4,
     """6-tap central differences per tile → [B, T, 3], with +1e-6 inside
     the normalising sqrt."""
     taps = []
+    # (eps along one axis; built on the device: a CUDA graph records no
+    # copy from host memory)
+    axes = torch.eye(3, dtype=p.dtype, device=p.device) * eps
     for axis in range(3):
-        off = torch.zeros((1, 1, 3), dtype=p.dtype, device=p.device)
-        off[0, 0, axis] = eps
+        off = axes[axis].reshape(1, 1, 3)
         taps.append(_tile_soft_min(p + off, centers_t, radii_t, c_sq_t, k,
                                    model_axis)
                     - _tile_soft_min(p - off, centers_t, radii_t, c_sq_t, k,

@@ -1,7 +1,10 @@
 """The device-time yardstick of the port's measurements: torch.profiler's
 trace of a few calls, read as the device-busy time per call (the union of
 the kernel, copy and memset intervals), the device events per call, the
-kernels with the most device time and each hand-written kernel's share.
+kernels with the most device time, each hand-written kernel's share, and
+the launches the host made per call (kernel launches, copies, memsets and
+CUDA-graph launches, each one runtime or driver call). Kernels that a
+CUDA-graph replay runs appear as device events like any other.
 
 ``chip_smoke.py`` (its config-1, config-4, refine and config-5 phases) and
 ``tools/bench_large.py`` report these numbers, and ``PERF.md`` compares
@@ -16,8 +19,11 @@ import json
 import math
 import os
 import tempfile
+import time
 
 import torch
+
+from burn_raymarching_tpu_torch.utils.profiling import WINDOW_MARGIN_S
 
 # The __global__ functions under csrc/, as a trace names them.
 HAND_KERNELS = ("march_shade_kernel", "march_pack_kernel",
@@ -26,21 +32,33 @@ HAND_KERNELS = ("march_shade_kernel", "march_pack_kernel",
                 "rep_bwd_kernel")
 
 
-def profile_calls(one, steps: int) -> dict:
+# Host calls that put work on a stream, as the trace names them.
+LAUNCH_CALLS = ("LaunchKernel", "GraphLaunch", "MemcpyAsync", "MemsetAsync",
+                "cuMemcpy", "cuMemset")
+
+
+def profile_calls(one, steps: int, margin_s: float = WINDOW_MARGIN_S
+                  ) -> dict:
     """torch.profiler over ``one(0)`` .. ``one(steps - 1)``, read from its
     trace's device events (kernels, copies, memsets; not the annotation
     spans that the trace also places on the device) → busy device time per
     step (the union of their intervals), events per step, the five kernel
-    names with the most device time, and the device time of each
-    hand-written kernel (HAND_KERNELS) that ran."""
+    names with the most device time, the device time of each hand-written
+    kernel (HAND_KERNELS) that ran and its events in the window, and the
+    host's launch calls per step (LAUNCH_CALLS among the runtime and driver
+    calls). The window stays open ``margin_s`` on each side of the calls:
+    torch.profiler drops device events stamped before it opens
+    (utils/profiling.trace)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(margin_s)
         for s in range(steps):
             one(s)
         torch.cuda.synchronize()
+        time.sleep(margin_s)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
@@ -50,6 +68,12 @@ def profile_calls(one, steps: int) -> dict:
                     e.get("name", "")) for e in events
                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
                    and "dur" in e)
+    launches = sum(1 for e in events
+                   if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                   and any(c in e.get("name", "") for c in LAUNCH_CALLS))
+    graph_launches = sum(1 for e in events
+                         if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                         and "GraphLaunch" in e.get("name", ""))
     busy_us, end = 0.0, -math.inf
     by_name: dict = {}
     for start, stop, name in spans:
@@ -59,9 +83,15 @@ def profile_calls(one, steps: int) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     hand = {k: sum(d for name, d in by_name.items() if k in name)
             for k in HAND_KERNELS}
+    hand_events = {k: sum(1 for _, _, name in spans if k in name)
+                   for k in HAND_KERNELS}
     return {"device_busy_ms_per_step": busy_us / 1000.0 / steps,
             "device_events_per_step": len(spans) / steps,
+            "host_launches_per_step": launches / steps,
+            "graph_launches_per_step": graph_launches / steps,
             "top_kernels_ms_per_step": [[k[:60], d / 1000.0 / steps]
                                         for k, d in top],
             "hand_kernels_ms_per_step": {k: d / 1000.0 / steps
-                                         for k, d in hand.items() if d > 0}}
+                                         for k, d in hand.items() if d > 0},
+            "hand_kernel_events": {k: n for k, n in hand_events.items()
+                                   if n > 0}}

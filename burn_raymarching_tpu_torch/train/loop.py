@@ -10,13 +10,17 @@ by a full cold march at every stage start) and the two-level cluster
 repulsion, whose cluster table is rebuilt once per stage from the
 stage-start centers.
 
-The step loop is a plain per-step Python loop: the JAX package's
-``steps_per_call`` / ``scan_unroll`` exist only to hide TPU dispatch and
-have no meaning here. The JAX package rebuilds the repulsion's frozen
-tables (train/loss.RepulsionStatic) once per scan chunk of 100 steps; this
-loop rebuilds them every 100 steps, before steps 1, 101, 201 and so on of
-each stage. The loss is read back to the host only at the 100-step log
-cadence. The kernels are used when ``use_pallas`` is set and the dataset
+A stage runs in chunks of ``self._chunk`` steps (``steps_per_call``,
+resolved as the JAX package resolves it: ``_chunk_target`` /
+``_resolve_chunk``), through train/chunk.ChunkRunner. At each chunk start
+the repulsion's frozen tables (train/loss.RepulsionStatic) are rebuilt
+from the live centers, as the JAX package's ``run_chunk`` does; at chunk
+ends where the step is a multiple of 100, or the last, the loss is read
+back to the host and logged. On a CUDA dataset every step is a replay of
+a CUDA graph of ``scan_unroll`` steps, captured once per ``run_stage``
+(one stage, one step closure) and freed at its end; the static buffers it
+reads are listed in train/chunk.py. On the CPU the steps run one at a
+time. The kernels are used when ``use_pallas`` is set and the dataset
 lives on a CUDA device.
 
 Around that loop stands the quality recipe: per-stage render schedules
@@ -31,7 +35,9 @@ costs PSNR is re-rolled) and residual-attribution splitting
 Subclass hooks (parallel/distributed.DistributedTrainer overrides them):
 ``_bucket`` (slot count for n live primitives), ``_place`` / ``_gather``
 (the full padded table to this rank's shard and back), ``_init_t_cache``,
-``_prepare_stage_params`` (row order at stage start), ``_stage_generator``
+``_prepare_stage_params`` (row order at stage start), ``_chunk_target``
+(the auto chunk), ``_replays_graphs`` (whether steps replay a captured CUDA
+graph), ``_stage_generator``
 (the stage's sampling generator), ``_prefill_rays`` (the pixels this rank
 prefills), ``_culled_march`` (the detached culled march for a tile batch),
 ``_march_tile_quantum`` (what a prefill chunk's tile count is padded to a
@@ -86,6 +92,7 @@ from burn_raymarching_tpu_torch.ops.culling import (
     build_clusters,
 )
 from burn_raymarching_tpu_torch.render.preview import CullRender, render_tiled
+from burn_raymarching_tpu_torch.train.chunk import ChunkRunner
 from burn_raymarching_tpu_torch.train.density import prune_and_split
 from burn_raymarching_tpu_torch.train.evaluate import evaluate_views
 from burn_raymarching_tpu_torch.train.loss import build_repulsion_static
@@ -100,7 +107,6 @@ from burn_raymarching_tpu_torch.train.residual import (
 from burn_raymarching_tpu_torch.train.optimizer import (
     anneal_for_step,
     make_optimizer,
-    set_group_lrs,
 )
 from burn_raymarching_tpu_torch.train.step_body import (
     culled_march_backend,
@@ -113,10 +119,6 @@ from burn_raymarching_tpu_torch.utils import (
     bucket_size,
     multi_view_morton_permutation,
 )
-
-# Steps between rebuilds of the repulsion's frozen tables (the JAX
-# package's default scan chunk).
-REP_STATIC_REFRESH = 100
 
 
 def build_dataset(cfg: TrainConfig, device: torch.device | str = "cpu"
@@ -241,6 +243,7 @@ class Trainer:
         else:
             self._sample_fg = (dataset.fg_indices, dataset.num_fg)
         self.lr_scales = lr_scale_tree(cfg)
+        self._chunk = self._resolve_chunk()
         self.step_fn = self._build_step()
         # One step closure per distinct per-stage render override set
         # (coverage_mode_stages, mask_sharpness_stages, supersample_stages,
@@ -259,6 +262,31 @@ class Trainer:
         self.t_cache = None
         if self.warm:
             self.t_cache = self._init_t_cache()
+
+    def _chunk_target(self) -> int:
+        """Auto steps_per_call ceiling: the reference's 100-step log
+        cadence, the JAX Trainer's."""
+        return 100
+
+    def _resolve_chunk(self) -> int:
+        """steps_per_call resolution, the JAX package's: an explicit value
+        as given when it divides steps_per_stage, else 1; 0 = the largest
+        divisor of steps_per_stage up to ``_chunk_target``."""
+        cfg = self.cfg
+        if cfg.steps_per_call:
+            return (cfg.steps_per_call
+                    if cfg.steps_per_stage % cfg.steps_per_call == 0 else 1)
+        best = 1
+        for d in range(1, min(self._chunk_target(),
+                              cfg.steps_per_stage) + 1):
+            if cfg.steps_per_stage % d == 0:
+                best = d
+        return best
+
+    def _replays_graphs(self) -> bool:
+        """Whether the steps replay a captured CUDA graph: on a CUDA
+        dataset, always."""
+        return self.device.type == "cuda"
 
     def _init_t_cache(self) -> torch.Tensor:
         return torch.zeros((self.dataset.num_total_pixels,),
@@ -409,14 +437,23 @@ class Trainer:
 
         ``idx_fn(step)`` injects fixed batch indices (tests).
         ``step_offset`` shifts the in-stage step counter: polish() uses it
-        to pin the anneals past the schedule end.
+        to pin the anneals past the schedule end. The steps run in chunks
+        of ``self._chunk`` (module docstring); ``steps`` must divide by it
+        (ValueError, as in the JAX package), and the chunk by
+        ``scan_unroll``.
         """
         cfg = self.cfg
+        steps = num_steps if num_steps is not None else cfg.steps_per_stage
+        chunk = self._chunk
+        if steps % chunk:
+            raise ValueError(f"steps ({steps}) must be divisible by "
+                             f"steps_per_call ({chunk})")
+        if chunk % cfg.scan_unroll:
+            raise ValueError(f"steps_per_call ({chunk}) must be divisible "
+                             f"by scan_unroll ({cfg.scan_unroll})")
         padded, mask = self._place(*pad_params(params,
                                                self._bucket(params.n)))
         opt = make_optimizer(cfg, padded)
-        ds = self.dataset
-        steps = num_steps if num_steps is not None else cfg.steps_per_stage
         loss = torch.zeros(())
         n_live = params.n
         if self.warm:
@@ -424,34 +461,36 @@ class Trainer:
                 padded, mask,
                 anneal_for_step(cfg, stage, 1 + step_offset)[1])
         clusters = self._build_cluster_table(padded, mask)
-        rep_static = None
         fg_pool, n_fg_pool = self._sample_fg
-        step_fn = self._step_for_stage(stage)
-        lr_scales = lr_scale_tree(cfg, stage)
+        runner = ChunkRunner(
+            self._step_for_stage(stage), padded, opt,
+            lr_scale_tree(cfg, stage), stage, mask, self.dataset.packed,
+            fg_pool, n_fg_pool, generator, t_cache=self.t_cache,
+            clusters=clusters, idx_fn=idx_fn, step_offset=step_offset,
+            unroll=cfg.scan_unroll, graphs=self._replays_graphs())
         t0 = time.perf_counter()
-        for step in range(1, steps + 1):
-            idx = idx_fn(step) if idx_fn is not None else None
-            if (cfg.cluster_repulsion
-                    and (step - 1) % REP_STATIC_REFRESH == 0):
-                rep_static = build_repulsion_static(padded.centers, clusters,
-                                                    mask)
-            loss, lr = step_fn(padded, generator, stage, step + step_offset,
-                               mask, ds.packed, fg_pool, n_fg_pool,
-                               idx=idx, t_cache=self.t_cache,
-                               clusters=clusters, rep_static=rep_static)
-            set_group_lrs(opt, lr, lr_scales)
-            opt.step()
-            if step % 100 == 0 or step == steps:
-                lv = float(loss)   # the only host read of the loop
-                rate = step * cfg.batch_size / (time.perf_counter() - t0)
-                self.loss_history.append(lv)
-                _, smooth_k, _ = anneal_for_step(cfg, stage,
-                                                 step + step_offset)
-                self.log(f"  Step {step} | Loss: {lv:.5f} | k: {smooth_k:.1f}"
-                         f" | {rate:,.0f} rays/s")
-                self.metrics.log(stage=stage, step=step, loss=lv,
-                                 smooth_k=round(smooth_k, 2),
-                                 n_primitives=n_live, rays_per_s=round(rate))
+        try:
+            for start in range(0, steps, chunk):
+                if cfg.cluster_repulsion:
+                    runner.refresh_static(build_repulsion_static(
+                        padded.centers, clusters, mask))
+                runner.run(start + 1, chunk)
+                step = start + chunk
+                if step % 100 == 0 or step == steps:
+                    loss = runner.loss.clone()
+                    lv = float(loss)   # the only host read of the loop
+                    rate = step * cfg.batch_size / (time.perf_counter() - t0)
+                    self.loss_history.append(lv)
+                    _, smooth_k, _ = anneal_for_step(cfg, stage,
+                                                     step + step_offset)
+                    self.log(f"  Step {step} | Loss: {lv:.5f} | k: "
+                             f"{smooth_k:.1f} | {rate:,.0f} rays/s")
+                    self.metrics.log(stage=stage, step=step, loss=lv,
+                                     smooth_k=round(smooth_k, 2),
+                                     n_primitives=n_live,
+                                     rays_per_s=round(rate))
+        finally:
+            runner.close()
         return (*self._gather(padded, mask), loss)
 
     def _load_views(self, cameras=None, targets=None):
@@ -622,7 +661,8 @@ class Trainer:
     @torch.no_grad()
     def prefill_t_cache(self, padded: SceneParams, mask: torch.Tensor,
                         smooth_k: float) -> None:
-        """Full cold march over every dataset pixel → fresh t cache; every
+        """Full cold march over every dataset pixel → fresh t cache,
+        written in place (a captured step reads this buffer); every
         training step then marches only cfg.warm_steps from the cached
         roots."""
         cfg = self.cfg

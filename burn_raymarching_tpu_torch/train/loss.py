@@ -201,7 +201,7 @@ def _masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor],
 
 
 def compute_loss(params: SceneParams, output: torch.Tensor,
-                 target: torch.Tensor, progress: float,
+                 target: torch.Tensor, progress,
                  mask: Optional[torch.Tensor] = None,
                  cfg: LossConfig = LossConfig(), repulsion_clusters=None,
                  repulsion_fn=None,
@@ -221,9 +221,8 @@ def compute_loss(params: SceneParams, output: torch.Tensor,
     object_mask = target_sum > cfg.fg_mask_threshold
     bg_weight = cfg.bg_weight_start + progress * (
         cfg.bg_weight_end - cfg.bg_weight_start)
-    weight_map = torch.where(object_mask,
-                             torch.full_like(target_sum, cfg.fg_weight),
-                             torch.full_like(target_sum, bg_weight))
+    # bg_weight is a tensor when progress is (the training step's).
+    weight_map = torch.where(object_mask, cfg.fg_weight, bg_weight)
     if cfg.fringe_weight != 1.0:
         fringe = object_mask & (target_sum < cfg.fringe_threshold)
         weight_map = torch.where(fringe, weight_map * cfg.fringe_weight,

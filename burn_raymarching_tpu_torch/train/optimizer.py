@@ -9,6 +9,15 @@ beta1 0.9, beta2 0.999, eps 1e-5, on the RAW parameters. The learning rate
 is set per step and per parameter group (lr × lr_scale) with
 ``set_group_lrs``; the trainer rebuilds the optimizer at every stage, which
 resets the moments.
+
+Both run their fused implementation (``fused=True``; the same update on the
+CPU and the card) with each group's learning rate a float32 tensor on the
+parameters' device, which ``set_group_lrs`` overwrites in place: the step's
+learning rate is a device tensor (train/step_body.device_schedule), and a
+step recorded in a CUDA graph reads the rate of the step it replays. On the
+card the optimizer is also ``capturable``, which torch requires of an
+optimizer stepped inside a graph; the fused update keeps its step count on
+the device either way, so the arithmetic is the same.
 """
 
 from __future__ import annotations
@@ -21,11 +30,16 @@ from burn_raymarching_tpu_torch.models.scene import PARAM_KEYS, SceneParams
 
 def make_optimizer(cfg: TrainConfig, params: SceneParams
                    ) -> torch.optim.Optimizer:
-    """One parameter group per SceneParams field, named by its key."""
-    groups = [{"params": [getattr(params, k)], "name": k}
+    """One parameter group per SceneParams field, named by its key, each
+    with its own learning-rate tensor."""
+    dev = params.centers.device
+    groups = [{"params": [getattr(params, k)], "name": k,
+               "lr": torch.tensor(cfg.base_lr, device=dev)}
               for k in PARAM_KEYS]
-    kw = dict(lr=cfg.base_lr, betas=(cfg.adam_b1, cfg.adam_b2),
-              eps=cfg.adam_eps, weight_decay=cfg.weight_decay)
+    kw = dict(lr=torch.tensor(cfg.base_lr, device=dev),
+              betas=(cfg.adam_b1, cfg.adam_b2), eps=cfg.adam_eps,
+              weight_decay=cfg.weight_decay, fused=True,
+              capturable=dev.type == "cuda")
     if cfg.weight_decay_mode == "decoupled":
         return torch.optim.AdamW(groups, **kw)
     if cfg.weight_decay_mode != "folded":
@@ -34,18 +48,16 @@ def make_optimizer(cfg: TrainConfig, params: SceneParams
     return torch.optim.Adam(groups, **kw)
 
 
-def set_group_lrs(opt: torch.optim.Optimizer, lr: float,
+def set_group_lrs(opt: torch.optim.Optimizer, lr,
                   scales: dict[str, float]) -> None:
-    """lr × per-group scale on every group (host floats: no device sync)."""
+    """lr × per-group scale into every group's learning-rate tensor, in
+    place. ``lr`` is a float or a tensor on the parameters' device (no
+    host read either way)."""
     for g in opt.param_groups:
-        g["lr"] = lr * scales[g["name"]]
-
-
-def lr_for_step(cfg: TrainConfig, stage: int, step: int) -> float:
-    """base_lr 0.6^stage, ×0.2 after the stage midpoint (1-based step)."""
-    base = cfg.base_lr * (cfg.lr_stage_decay ** stage)
-    return (base * cfg.lr_midstage_factor
-            if step > cfg.steps_per_stage // 2 else base)
+        if torch.is_tensor(lr):
+            g["lr"].copy_(lr * scales[g["name"]])
+        else:
+            g["lr"].fill_(lr * scales[g["name"]])
 
 
 def anneal_for_step(cfg: TrainConfig, stage: int, step: int

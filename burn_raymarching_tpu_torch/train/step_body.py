@@ -13,8 +13,12 @@ One step: sample a batch → forward → loss → autograd. Three forwards:
   or by the plain tail when the render config is not the reference's;
 * plain ``scene_forward`` otherwise.
 
-The anneal schedule is computed on the host in float32, as the JAX package
-computes it in-graph, so no step reads anything back from the device.
+The anneal schedule is computed on the device from a step-index tensor
+(``device_schedule``), as the JAX package computes it in-graph: smooth_k
+reaches the kernels, progress the loss, uniform_ratio the sampler and the
+learning rate Adam as float32 tensors, so no step reads anything back from
+the device and a step recorded once in a CUDA graph replays at any step
+index (train/chunk.py).
 
 The axes (parallel/DistributedTrainer) are the only difference between the
 single-device and the sharded step:
@@ -92,20 +96,40 @@ def lr_scale_tree(cfg: TrainConfig, stage: Optional[int] = None
 
 def schedule_for_step(cfg: TrainConfig, stage: int, step: int
                       ) -> tuple[float, float, float, float]:
-    """Anneals for a 1-based step: (progress, smooth_k, uniform_ratio, lr),
-    computed in float32 like the JAX package's in-graph schedule. progress
-    caps at 1."""
-    f32 = np.float32
-    global_step = f32(stage * cfg.steps_per_stage + step)
-    progress = min(global_step / f32(cfg.total_steps), f32(1.0))
-    smooth_k = f32(cfg.min_smooth_k) + f32(
-        cfg.max_smooth_k - cfg.min_smooth_k) * progress
-    uniform_ratio = f32(cfg.uniform_ratio_start) - f32(
-        cfg.uniform_ratio_start - cfg.uniform_ratio_end) * progress
-    base_lr = f32(cfg.base_lr) * np.power(f32(cfg.lr_stage_decay), f32(stage))
-    lr = (base_lr * f32(cfg.lr_midstage_factor)
-          if step > cfg.steps_per_stage // 2 else base_lr)
-    return float(progress), float(smooth_k), float(uniform_ratio), float(lr)
+    """Anneals for a 1-based step as host floats: (progress, smooth_k,
+    uniform_ratio, lr) of ``device_schedule``. progress caps at 1."""
+    return tuple(float(x) for x in device_schedule(cfg, stage,
+                                                   torch.tensor(step)))
+
+
+def device_schedule(cfg: TrainConfig, stage: int, step: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                               torch.Tensor]:
+    """``schedule_for_step`` with the 1-based step as an integer tensor →
+    float32 tensors (progress, smooth_k, uniform_ratio, lr) on its device,
+    bitwise the values of the JAX package's schedule as XLA compiles it
+    inside its step: progress = global step × f32(1 / total_steps), capped
+    at 1; smooth_k and uniform_ratio as fused multiply-adds, one rounding
+    (here in float64, where the product of two float32 values is exact);
+    the mid-stage rate as (base_lr × factor) × decay^stage. ``stage`` is a
+    host int: a captured step closure belongs to one stage."""
+    f32, f64 = np.float32, np.float64
+    gs = (step + stage * cfg.steps_per_stage).to(torch.float32)
+    progress = torch.clamp(gs * float(f32(1.0) / f32(cfg.total_steps)),
+                           max=1.0)
+    p64 = progress.to(torch.float64)
+    smooth_k = (p64 * float(f32(cfg.max_smooth_k - cfg.min_smooth_k))
+                + float(f32(cfg.min_smooth_k))).to(torch.float32)
+    uniform_ratio = (float(f32(cfg.uniform_ratio_start))
+                     - p64 * float(f32(cfg.uniform_ratio_start
+                                       - cfg.uniform_ratio_end))
+                     ).to(torch.float32)
+    decay = f32(f64(f32(cfg.lr_stage_decay)) ** stage)
+    base_lr = f32(cfg.base_lr) * decay
+    late_lr = (f32(cfg.base_lr) * f32(cfg.lr_midstage_factor)) * decay
+    lr = torch.where(step > cfg.steps_per_stage // 2, float(late_lr),
+                     float(base_lr))
+    return progress, smooth_k, uniform_ratio, lr
 
 
 def subpixel_offsets(ss: int) -> np.ndarray:
@@ -123,6 +147,16 @@ def subpixel_offsets(ss: int) -> np.ndarray:
                     axis=1)
 
 
+@functools.cache
+def _subpixel_offsets_on(ss: int, pixel_angle: float, dtype: torch.dtype,
+                         device: torch.device) -> torch.Tensor:
+    """``subpixel_offsets(ss) * pixel_angle`` [ss, 2] on ``device``, copied
+    there once (a copy from host memory cannot be recorded in a CUDA
+    graph)."""
+    return torch.as_tensor(subpixel_offsets(ss) * pixel_angle, dtype=dtype,
+                           device=device)
+
+
 def expand_subpixel(ro: torch.Tensor, rd: torch.Tensor, ss: int,
                     pixel_angle: float) -> tuple[torch.Tensor, torch.Tensor]:
     """[N,3] rays → [N*ss,3]: each ray becomes ``ss`` copies jittered over
@@ -133,11 +167,10 @@ def expand_subpixel(ro: torch.Tensor, rd: torch.Tensor, ss: int,
     the ray, not the camera's image axes: the packed rays carry no camera
     id, and for the area integral only the footprint's size matters.
     Sub-ray directions are re-normalized."""
-    off = torch.as_tensor(subpixel_offsets(ss) * pixel_angle, dtype=rd.dtype,
-                          device=rd.device)                     # [ss, 2]
-    up = torch.where(rd[:, 1:2].abs() < 0.9,
-                     rd.new_tensor([0.0, 1.0, 0.0])[None, :],
-                     rd.new_tensor([1.0, 0.0, 0.0])[None, :])
+    off = _subpixel_offsets_on(ss, pixel_angle, rd.dtype, rd.device)
+    axes = torch.eye(3, dtype=rd.dtype, device=rd.device)
+    up = torch.where(rd[:, 1:2].abs() < 0.9, axes[1][None, :],
+                     axes[0][None, :])
     e1 = torch.linalg.cross(rd, up)
     e1 = e1 / torch.sqrt(torch.sum(e1 * e1, dim=1, keepdim=True))
     e2 = torch.linalg.cross(rd, e1)
@@ -163,10 +196,11 @@ def uses_fused_shade(cfg: TrainConfig, march_normal_fn,
 
 def sample_step_indices(cfg: TrainConfig, generator: torch.Generator,
                         n_pixels: int, fg_indices: torch.Tensor, n_fg: int,
-                        batch: int, uniform_ratio: float) -> torch.Tensor:
+                        batch: int, uniform_ratio) -> torch.Tensor:
     """Batch pixel indices: i.i.d. pixels, or with ``sample_mode="tile"``
     whole ``cull_tile`` Morton blocks (fg_indices/n_fg at tile
-    granularity, from RayDataset.tile_fg)."""
+    granularity, from RayDataset.tile_fg). ``uniform_ratio``: a float or a
+    float32 tensor (data/dataset.sample_batch_indices)."""
     if cfg.sample_mode != "tile":
         return sample_batch_indices(generator, n_pixels, fg_indices, n_fg,
                                     batch, uniform_ratio)
@@ -261,10 +295,13 @@ def make_device_step(cfg: TrainConfig, *, march_normal_fn: Optional[Callable],
                      model_axis: Optional[Axis] = None) -> Callable:
     """Build device_step(params, generator, stage, step, mask, packed,
     fg_indices, n_fg, idx=None, t_cache=None, clusters=None,
-    rep_static=None) → (loss tensor, lr).
+    rep_static=None) → (loss tensor, lr tensor).
 
-    ``step`` is 1-based within the stage. The step leaves the gradients in
-    ``params``' ``.grad``. ``idx`` injects the sampled batch indices
+    ``step`` is 1-based within the stage: an int, or an integer tensor on
+    the dataset's device (what a captured step reads). The anneals are
+    ``device_schedule``'s tensors; nothing is read back to the host, so
+    the step can be recorded in a CUDA graph. The step leaves the
+    gradients in ``params``' ``.grad``. ``idx`` injects the sampled batch indices
     (tests); culled steps sort them. With ``warm`` the march starts from
     ``warm_backoff`` × the cached t of each pixel and writes its result
     back into ``t_cache`` [P] in place. ``clusters`` (PrimitiveClusters)
@@ -304,7 +341,9 @@ def make_device_step(cfg: TrainConfig, *, march_normal_fn: Optional[Callable],
                     idx: Optional[torch.Tensor] = None,
                     t_cache: Optional[torch.Tensor] = None, clusters=None,
                     rep_static=None):
-        progress, smooth_k, uniform_ratio, lr = schedule_for_step(
+        if not torch.is_tensor(step):
+            step = torch.tensor(step, device=packed.device)
+        progress, smooth_k, uniform_ratio, lr = device_schedule(
             cfg, stage, step)
         if idx is None:
             idx = sample_step_indices(cfg, generator, packed.shape[0],

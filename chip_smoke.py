@@ -44,10 +44,18 @@ non-zero without the final result line:
                    crosses one density-control boundary and exports
                    scene.json; K1 and K2's launch counters must have grown
                    during it; then the final loss, train-view PSNR and
-                   steady-state rays/s of the kernel step and of the
-                   --no-pallas step, and the kernel step's device-busy
-                   time and each hand-written kernel's share of it
-                   (torch.profiler);
+                   steady-state rays/s of the kernel step (replayed from a
+                   CUDA graph, as run_stage runs it, and one step at a
+                   time) and of the --no-pallas step, and the kernel
+                   step's device-busy time and each hand-written kernel's
+                   share of it (torch.profiler); then chunk_c1: one
+                   100-step chunk replayed from a captured graph beside
+                   the same chunk run one step at a time, twice, from one
+                   state and generator (phase_chunk: the indices of every
+                   step bitwise equal, the parameters within 2x the two
+                   plain runs' gap, wall and device-busy ms, busy share
+                   and the host's launch calls per step of both, each hand
+                   kernel's trace events equal to its launch count);
   7. generate_c4 — the generator writes the config-4 knot set (30 views at
                    512², 400 GT spheres, GT k 128, sharpness 40);
   8. train_c4    — tools/run_c5.py with config 4's flags cut to 2 stages x
@@ -58,9 +66,11 @@ non-zero without the final result line:
                    init's; then, on a Trainer of the same configuration
                    holding the scene the run exported, steady-state rays/s
                    of the kernel and --no-pallas steps and the kernel step's
-                   device-busy share (torch.profiler); then a 2 x 30-step
-                   run with --split-mode residual across one boundary: N
-                   before and after and the number split;
+                   device-busy share (torch.profiler), captured and one
+                   step at a time; then chunk_c4 (phase_chunk on that
+                   trainer); then a 2 x 30-step run with --split-mode
+                   residual across one boundary: N before and after and
+                   the number split;
   9. refine_c4   — the quality recipe on the same knot set through
                    tools/run_c5.py: runs/c4_headline/scene_c5.json (the JAX
                    package's 28.39 dB scene) loaded with --from-scene under
@@ -87,8 +97,9 @@ non-zero without the final result line:
                    sampling, warm start, cluster repulsion at C = 800)
                    trains 2 x 50 steps on its first 20 views, with its
                    ceiling, init and trained PSNR (K1, K3 and K4 must have
-                   been launched); the step's wall and device-busy time and
-                   top device ops on the scene it trained; K3 at config 5's
+                   been launched); the step's wall and device-busy time,
+                   host launches and top device ops on the scene it
+                   trained, captured and one step at a time; K3 at config 5's
                    shape (32 tiles x 512 rays, K = 4,096) against its plain
                    version; runs/c5_stack3/scene_c5.json through
                    --from-scene on all 100 views, within 0.1 dB of the
@@ -127,7 +138,8 @@ K1's early exit (``early_exit=True``; no path sets it) is held at every
 table width of phase 3 against the fixed-count launch, against its plain
 version, and timed beside the fixed-count launch.
 The line before the last is {"kernels": [...]}: per kernel its launches on
-the training path (``launches``), on the quality path that runs it
+the training path (``launches``; a kernel that a CUDA-graph replay launches
+counts once per replay, train/chunk.py), on the quality path that runs it
 (``launches_quality``: phase 9 for K3 and K4, phase 10 for K1 and K2), on
 the config-5 path (``launches_c5``), on the distributed paths
 (``launches_distributed``) and on the viewer's (``launches_viewer``), error, ``ms`` (the wrapper call between CUDA
@@ -1070,68 +1082,178 @@ def phase_kernels_c4(torch, dev) -> dict:
     return results
 
 
-def step_runner(torch, trainer, final, mask, t_cache=None):
+def step_runner(torch, trainer, final, mask, t_cache=None,
+                graphs: bool = True, seed: int = 1):
     """The trainer's full step (sample, forward, loss, backward, Adam) on a
     fresh copy of the padded ``final`` params, with the trainer's sampling
     pools, cluster table, frozen repulsion prep and a copy of ``t_cache``
-    (for warm-started configs) → one(step)."""
+    (for warm-started configs), as run_stage sets it up → a ChunkRunner
+    (train/chunk.py): a captured CUDA graph of one step with ``graphs``,
+    else one step at a time."""
     from burn_raymarching_tpu_torch.models.scene import (
         pad_params,
         unpad_params,
     )
+    from burn_raymarching_tpu_torch.train.chunk import ChunkRunner
     from burn_raymarching_tpu_torch.train.loss import build_repulsion_static
-    from burn_raymarching_tpu_torch.train.optimizer import (
-        make_optimizer,
-        set_group_lrs,
-    )
+    from burn_raymarching_tpu_torch.train.optimizer import make_optimizer
 
     cfg, ds = trainer.cfg, trainer.dataset
     padded, _ = pad_params(unpad_params(final, int(mask.sum())), final.n)
-    opt = make_optimizer(cfg, padded)
     gen = torch.Generator(device=ds.device)
-    gen.manual_seed(1)
+    gen.manual_seed(seed)
     clusters = trainer._build_cluster_table(padded, mask)
-    rep_static = (build_repulsion_static(padded.centers, clusters, mask)
-                  if cfg.cluster_repulsion else None)
     fg_pool, n_fg = trainer._sample_fg
-    cache = None if t_cache is None else t_cache.clone()
-
-    def one(step):
-        _, lr = trainer.step_fn(padded, gen, cfg.stages - 1, step, mask,
-                                ds.packed, fg_pool, n_fg, t_cache=cache,
-                                clusters=clusters, rep_static=rep_static)
-        set_group_lrs(opt, lr, trainer.lr_scales)
-        opt.step()
-
-    return one
+    runner = ChunkRunner(
+        trainer.step_fn, padded, make_optimizer(cfg, padded),
+        trainer.lr_scales, cfg.stages - 1, mask, ds.packed, fg_pool, n_fg,
+        gen, t_cache=None if t_cache is None else t_cache.clone(),
+        clusters=clusters, graphs=graphs)
+    if cfg.cluster_repulsion:
+        runner.refresh_static(build_repulsion_static(padded.centers,
+                                                     clusters, mask))
+    return runner
 
 
 def step_rate(torch, trainer, final, mask, steps: int = 30,
-              t_cache=None) -> float:
-    """Steady-state rays/s of ``step_runner``'s step after 5 warm-up steps,
-    host clock around synchronized work."""
-    one = step_runner(torch, trainer, final, mask, t_cache)
-    for s in range(1, 6):
-        one(s)
+              t_cache=None, graphs: bool = True) -> float:
+    """Steady-state rays/s of ``step_runner``'s step after 5 warm-up steps
+    (with ``graphs``, the capture among them), host clock around
+    synchronized work."""
+    runner = step_runner(torch, trainer, final, mask, t_cache, graphs)
+    runner.run(1, 5)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for s in range(6, 6 + steps):
-        one(s)
+    runner.run(6, steps)
     torch.cuda.synchronize()
-    return steps * trainer.cfg.batch_size / (time.perf_counter() - t0)
+    rate = steps * trainer.cfg.batch_size / (time.perf_counter() - t0)
+    runner.close()
+    return rate
 
 
-def device_profile(torch, trainer, final, mask, t_cache, steps: int = 10
-                   ) -> dict:
+def device_profile(torch, trainer, final, mask, t_cache, steps: int = 10,
+                   graphs: bool = True) -> dict:
     """tools/device_time.profile_calls (torch.profiler's device-busy time
-    per step and the top device ops) over ``steps`` steady training
-    steps."""
+    per step, the top device ops and the host's launch calls per step) over
+    ``steps`` steady training steps of ``step_runner``."""
     from burn_raymarching_tpu_torch.tools.device_time import profile_calls
 
-    one = step_runner(torch, trainer, final, mask, t_cache)
-    for s in range(1, 4):
-        one(s)
-    return profile_calls(lambda i: one(4 + i), steps)
+    runner = step_runner(torch, trainer, final, mask, t_cache, graphs)
+    runner.run(1, 3)
+    out = profile_calls(lambda i: runner.run(4 + i, 1), steps)
+    runner.close()
+    return out
+
+
+# The hand kernels as the trace names them (tools/device_time.HAND_KERNELS)
+# → their wrappers' names in the kernels line.
+TRACE_NAMES = {"march_shade_kernel": "march_shade",
+               "march_pack_kernel": "march_pack",
+               "shade_pack_kernel": "shade_pack",
+               "shade_fwd_kernel": "shade_fwd",
+               "shade_bwd_kernel": "shade_bwd",
+               "culled_march_kernel": "culled_march",
+               "rep_fwd_kernel": "repulsion_fwd",
+               "rep_bwd_kernel": "repulsion_bwd"}
+CHUNK_STEPS = 100
+
+
+def phase_chunk(torch, label: str, trainer, final, mask, t_cache=None
+                ) -> dict:
+    """One CHUNK_STEPS-step chunk of ``trainer``'s step replayed from a
+    captured CUDA graph, and the same chunk run one step at a time, twice,
+    all from the same state and generator: the batch indices of every step
+    (recorded on the device, inside the graph too) must match bitwise, and
+    the captured chunk's largest parameter difference to the first plain
+    run must stay within 2x the two plain runs' own difference (bitwise
+    where they are bitwise). Then, plain beside captured: wall ms per step
+    over a second chunk, and over 20 steps device-busy ms, the busy share
+    and the host's launch calls per step (tools/device_time), with each
+    hand kernel's trace events held to its launch count."""
+    import burn_raymarching_tpu_torch.train.step_body as sb
+    from burn_raymarching_tpu_torch.models.scene import PARAM_KEYS
+    from burn_raymarching_tpu_torch.tools.device_time import profile_calls
+
+    cfg = trainer.cfg
+    dev = trainer.device
+    n_unique = cfg.batch_size // max(1, int(cfg.render.supersample))
+    rec = torch.zeros((CHUNK_STEPS + 1, n_unique), dtype=torch.int64,
+                      device=dev)
+    pos = torch.zeros((1,), dtype=torch.int64, device=dev)
+    sample = sb.sample_step_indices
+
+    def recording(*args, **kw):
+        idx = sample(*args, **kw)
+        rec.index_copy_(0, pos, idx[None])
+        pos.add_(1)
+        return idx
+
+    runs = {}
+    sb.sample_step_indices = recording
+    try:
+        for mode in ("plain", "plain_again", "graph"):
+            pos.zero_()
+            runner = step_runner(torch, trainer, final, mask, t_cache,
+                                 graphs=mode == "graph")
+            runner.run(1, CHUNK_STEPS)
+            torch.cuda.synchronize()
+            # The graph's warm-up step drew first; it was undone, and the
+            # first replay drew the same indices again.
+            first = int(pos.item()) - CHUNK_STEPS
+            runs[mode] = (rec[first:first + CHUNK_STEPS].clone(),
+                          [getattr(runner.params, k).detach().clone()
+                           for k in PARAM_KEYS])
+            runner.close()
+    finally:
+        sb.sample_step_indices = sample
+
+    def gap(a, b):
+        return max((x - y).abs().max().item() for x, y in zip(a, b))
+
+    idx_equal = all(torch.equal(runs[m][0], runs["plain"][0])
+                    for m in ("plain_again", "graph"))
+    plain_gap = gap(runs["plain"][1], runs["plain_again"][1])
+    graph_gap = gap(runs["graph"][1], runs["plain"][1])
+    out = {"steps": CHUNK_STEPS, "indices_bitwise_equal": idx_equal,
+           "max_param_diff_graph_vs_plain": graph_gap,
+           "max_param_diff_plain_vs_plain": plain_gap,
+           "tol": 2.0 * plain_gap}
+    for mode in ("plain", "graph"):
+        runner = step_runner(torch, trainer, final, mask, t_cache,
+                             graphs=mode == "graph")
+        runner.run(1, CHUNK_STEPS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.run(CHUNK_STEPS + 1, CHUNK_STEPS)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1000.0 / CHUNK_STEPS
+        before = {name: fn.launches for name, fn in kernel_counters().items()}
+        prof = profile_calls(
+            lambda i: runner.run(2 * CHUNK_STEPS + 1 + i, 1), 20)
+        counts = {name: fn.launches - before[name]
+                  for name, fn in kernel_counters().items()}
+        runner.close()
+        traced = {TRACE_NAMES[k]: n
+                  for k, n in prof.pop("hand_kernel_events").items()}
+        out[mode] = {"wall_ms_per_step": wall,
+                     "device_busy_share":
+                         prof["device_busy_ms_per_step"] / wall,
+                     **prof, "launches_20_steps": counts,
+                     "traced_20_steps": traced}
+        if {k: n for k, n in counts.items() if n} != traced:
+            raise AssertionError(f"{label} {mode}: launch counts {counts} "
+                                 f"disagree with the trace's {traced}")
+    emit(f"chunk_{label}", **out)
+    if not idx_equal:
+        raise AssertionError(f"{label}: the captured chunk drew other "
+                             f"indices than the plain loop")
+    if graph_gap > 2.0 * plain_gap:
+        raise AssertionError(f"{label}: captured chunk {graph_gap:.3e} from "
+                             f"the plain loop, two plain runs "
+                             f"{plain_gap:.3e} apart")
+    if out["graph"]["graph_launches_per_step"] < 1.0:
+        raise AssertionError(f"{label}: the trace shows no graph launch")
+    return out
 
 
 def phase_generate_and_train(torch, tmp: str) -> dict:
@@ -1196,6 +1318,8 @@ def phase_generate_and_train(torch, tmp: str) -> dict:
          psnr_mean=ev["mean"], psnr_min=ev["min"],
          loss_history=trainer.loss_history,
          rays_per_s_kernels=rate_kernels,
+         rays_per_s_kernels_one_step_at_a_time=step_rate(
+             torch, trainer, padded, mask, graphs=False),
          rays_per_s_plain=rate_plain, wall_ms_per_step=wall_ms,
          device_busy_share=prof["device_busy_ms_per_step"] / wall_ms,
          **prof, launches=launches,
@@ -1204,7 +1328,7 @@ def phase_generate_and_train(torch, tmp: str) -> dict:
     if not (math.isfinite(final_loss) and ev["mean"] > MIN_PSNR_DB):
         raise AssertionError(f"bad training result: loss {final_loss}, "
                              f"PSNR {ev['mean']} (need > {MIN_PSNR_DB})")
-
+    phase_chunk(torch, "c1", trainer, padded, mask)
     return launches
 
 
@@ -1299,7 +1423,11 @@ def phase_c4(torch, dev, tmp: str) -> dict:
          loss_history=res["loss_history"], psnr_init=res["init"],
          psnr_trained=res["trained"],
          eval_seconds_per_pass=round(res["eval_wall_s"], 3),
-         rays_per_s_kernels=rate_kernels, rays_per_s_plain=rate_plain,
+         rays_per_s_kernels=rate_kernels,
+         rays_per_s_kernels_one_step_at_a_time=step_rate(
+             torch, trainer, padded, mask, t_cache=trainer.t_cache,
+             graphs=False),
+         rays_per_s_plain=rate_plain,
          wall_ms_per_step=wall_ms,
          device_busy_share=prof["device_busy_ms_per_step"] / wall_ms,
          **prof,
@@ -1307,6 +1435,7 @@ def phase_c4(torch, dev, tmp: str) -> dict:
     if not (math.isfinite(final_loss) and res["trained"] > res["init"]):
         raise AssertionError(f"bad config-4 result: loss {final_loss}, "
                              f"PSNR {res['trained']} (init {res['init']})")
+    phase_chunk(torch, "c4", trainer, padded, mask, trainer.t_cache)
 
     # One boundary with residual-attribution splitting.
     t0 = time.perf_counter()
@@ -1702,13 +1831,19 @@ def phase_c5(torch, dev, tmp: str) -> tuple[dict, dict]:
     trainer, padded, mask = trainer_on_scene(
         torch, dev, argv, os.path.join(out, "scene_c5.json"))
     cfg = trainer.cfg
-    rate = step_rate(torch, trainer, padded, mask, steps=20,
-                     t_cache=trainer.t_cache)
-    wall_ms = cfg.batch_size / rate * 1000.0
-    prof = device_profile(torch, trainer, padded, mask, trainer.t_cache)
-    emit("step_c5", n_live=int(mask.sum()), slots=padded.n,
-         rays_per_s_kernels=rate, wall_ms_per_step=wall_ms,
-         device_busy_share=prof["device_busy_ms_per_step"] / wall_ms, **prof,
+    steps = {}
+    for graphs in (True, False):
+        rate = step_rate(torch, trainer, padded, mask, steps=20,
+                         t_cache=trainer.t_cache, graphs=graphs)
+        wall_ms = cfg.batch_size / rate * 1000.0
+        prof = device_profile(torch, trainer, padded, mask, trainer.t_cache,
+                              graphs=graphs)
+        prof.pop("hand_kernel_events")
+        steps["graph" if graphs else "plain"] = dict(
+            rays_per_s_kernels=rate, wall_ms_per_step=wall_ms,
+            device_busy_share=prof["device_busy_ms_per_step"] / wall_ms,
+            **prof)
+    emit("step_c5", n_live=int(mask.sum()), slots=padded.n, **steps,
          peak_memory_bytes=torch.cuda.max_memory_allocated())
 
     # K3 at config 5's shape: 32 tiles of the 256² rig against per-tile

@@ -3,10 +3,9 @@ on gloo ranks on the CPU: the cases of tests/test_distributed.py, with the
 JAX package's virtual 8-device mesh replaced by 2-4 spawned ranks
 (tests/torch_dist.py), each mesh at most 4 ranks.
 
-Not ported: ``test_auto_steps_per_call_targets``. ``steps_per_call`` steers
-only the JAX package's scanned chunk of steps; the port's step loop is a
-plain per-step loop, so there is no chunk to resolve (ROADMAP.md, "Leave
-out of the port").
+``test_auto_steps_per_call_targets`` is ported in
+tests/test_torch_chunk_runner.py (its single-card rows against the JAX
+Trainer, its sharded target of 350 through the same rule).
 """
 
 from __future__ import annotations
