@@ -27,6 +27,13 @@ With the gloo backend (CPU runs, and several ranks that share one GPU,
 which NCCL refuses) gloo takes only CPU tensors for most collectives: a
 CUDA tensor is staged through host memory for the call. That is the
 transport; every computation stays on the tensor's device.
+
+With NCCL nothing here touches the host: each collective copies its
+operand into a fresh device buffer and enqueues the NCCL call on the
+current stream (``async_op=False``, so the caller's stream waits for it).
+That is what lets a CUDA graph record them (train/chunk.py), once the
+group's communicator exists: NCCL creates it at the group's first
+collective, which must run outside the capture.
 """
 
 from __future__ import annotations
@@ -48,9 +55,14 @@ class Axis:
     name: str = ""
 
     @property
+    def backend(self) -> str:
+        """The group's backend ("nccl" or "gloo")."""
+        return dist.get_backend(self.group)
+
+    @property
     def staged(self) -> bool:
         """True when CUDA tensors go through host memory (gloo)."""
-        return dist.get_backend(self.group) == "gloo"
+        return self.backend == "gloo"
 
 
 def _to_wire(x: torch.Tensor, axis: Axis) -> torch.Tensor:

@@ -22,7 +22,15 @@ the mesh (parallel/mesh.py), and every rank runs the same program:
 DistributedTrainer IS the single-device Trainer (a subclass): the same
 stages, anneals, density control, warm prefill, checkpoints, previews,
 export, polish and refinement; only the hooks listed in train/loop.py
-differ. There is no reduced second training loop.
+differ. There is no reduced second training loop. A stage runs in chunks
+of ``steps_per_call`` (auto target 350, the JAX package's) through the
+Trainer's run_stage, whose ChunkRunner runs the sharded step
+(parallel/train_step.make_sharded_train_step, from ``_build_step``): on a
+CUDA dataset over an all-NCCL mesh each step replays a captured CUDA graph
+of the whole sharded step, its collectives included; over gloo the steps
+run one at a time (parallel/train_step.replays_graphs). The trainer
+decides which at construction, logs it once and records it in ``events``
+(kind "graphs").
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ from burn_raymarching_tpu_torch.parallel.mesh import (
 from burn_raymarching_tpu_torch.parallel.train_step import (
     gather_params,
     make_sharded_train_step,
+    replays_graphs,
     shard_params,
 )
 from burn_raymarching_tpu_torch.train.loop import Trainer, fold_key
@@ -131,6 +140,16 @@ class DistributedTrainer(Trainer):
         # Pixel-mode sampling reads this shard's own fg set.
         if cfg.sample_mode != "tile":
             self._sample_fg = (sharded.fg_indices, sharded.num_fg_local)
+        axes = (self.data_axis, self.model_axis)
+        self._graphs = replays_graphs(self.device, axes)
+        graphs = self._replays_graphs()      # what run_stage will read
+        backend = "/".join(sorted({ax.backend for ax in axes}))
+        self.events.append(dict(kind="graphs", graphs=graphs,
+                                backend=backend,
+                                mesh=[self.n_data, self.model]))
+        self.log(f"Sharded steps over a {self.n_data}x{self.model} {backend} "
+                 f"mesh: " + ("each a replay of a captured CUDA graph"
+                              if graphs else "one at a time"))
 
     def _cluster_features(self) -> bool:
         cfg = self.cfg
@@ -146,13 +165,10 @@ class DistributedTrainer(Trainer):
         return 350
 
     def _replays_graphs(self) -> bool:
-        """The sharded steps run one at a time, also on the card: gloo's
-        collectives (several ranks on one card) cannot be recorded in a
-        CUDA graph, and one card gives one NCCL rank, so a captured NCCL
-        chunk could not be held against anything with a collective that
-        moves data. The JAX package's ``make_sharded_chunk_runner`` is
-        queued in ROADMAP.md."""
-        return False
+        """Decided at construction, by backend (train_step.replays_graphs):
+        graphs on a CUDA dataset when every mesh axis runs NCCL; over gloo,
+        whose host staging a graph cannot record, one step at a time."""
+        return self._graphs
 
     def _build_step(self, render_overrides=None):
         # K1 marches a whole table and has no union form: the model-sharded

@@ -11,25 +11,35 @@ on each rank's own rows: its moment buffers sit beside them in
 ``torch.optim`` state, so they shard exactly as the rows do and the
 replicated leaves' moments stay replicated.
 
-The JAX package's ``make_sharded_chunk_runner`` scans a chunk of sharded
-steps in one program; here the sharded steps run one at a time
-(DistributedTrainer._replays_graphs), so it becomes the per-step function
-of ``make_sharded_train_step``, which DistributedTrainer._build_step
-returns: the shared step body of train/step_body.py with the mesh's axes. Its gradients are averaged over
-the data axis before Adam, so every data replica takes the same step.
+``make_sharded_chunk_runner`` is the counterpart of the JAX package's
+function of that name, which scans a chunk of whole sharded steps
+(sampling, forward, loss, gradients, the data-axis pmean and Adam) inside
+one ``shard_map``. Here the step is ``make_sharded_train_step``'s: the
+shared step body of train/step_body.py with the mesh's axes, its gradients
+and loss averaged over the data axis before Adam, so every data replica
+takes the same step. The runner of its chunks is train/chunk.ChunkRunner,
+as for the single-device step: where ``replays_graphs`` allows it (a CUDA
+dataset, every mesh axis on NCCL) each step is a replay of a captured CUDA
+graph that holds the whole sharded step, its collectives included; over a
+gloo axis, whose collectives stage CUDA tensors through host memory, the
+steps run one at a time. DistributedTrainer builds the same pair through
+the Trainer's hooks: ``_build_step`` returns the sharded step, and
+run_stage's ChunkRunner runs it with ``graphs`` from ``_replays_graphs``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import functools
+from typing import Callable, Iterable, Optional
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
 from burn_raymarching_tpu_torch.config import TrainConfig
 from burn_raymarching_tpu_torch.models.scene import SceneParams
-from burn_raymarching_tpu_torch.parallel.collectives import all_gather
+from burn_raymarching_tpu_torch.parallel.collectives import Axis, all_gather
 from burn_raymarching_tpu_torch.parallel.mesh import mesh_axis
+from burn_raymarching_tpu_torch.train.chunk import ChunkRunner
 from burn_raymarching_tpu_torch.train.step_body import make_device_step
 
 # The row-sharded leaves (the rest are replicated).
@@ -91,3 +101,31 @@ def make_sharded_train_step(cfg: TrainConfig, mesh: DeviceMesh, *,
         return step(*args, **kwargs)
 
     return sharded_step
+
+
+def replays_graphs(device: torch.device, axes: Iterable[Axis]) -> bool:
+    """Whether the sharded steps on ``device`` over the mesh ``axes``
+    replay a captured CUDA graph: on a CUDA device when every axis runs
+    NCCL. gloo stages CUDA tensors through host memory, which a graph
+    cannot record, so a mesh with a gloo axis (the CPU; several ranks that
+    share one card) runs its steps one at a time. A rule fixed before the
+    stage starts: a capture that fails under NCCL raises."""
+    return device.type == "cuda" and all(ax.backend == "nccl" for ax in axes)
+
+
+def make_sharded_chunk_runner(
+        cfg: TrainConfig, mesh: DeviceMesh, *, graphs: bool,
+        march_normal_fn: Optional[Callable] = None,
+        culled_march_fn: Optional[Callable] = None,
+        warm: bool = False) -> Callable[..., ChunkRunner]:
+    """The sharded step (``make_sharded_train_step`` with these arguments)
+    and the runner of its chunks → ``make_runner(params, opt, lr_scales,
+    stage, mask, packed, fg_pool, n_fg, generator, **kw)``, a ChunkRunner
+    of that step (train/chunk.py, the same arguments) that replays a
+    captured graph of the whole sharded step, collectives included, when
+    ``graphs`` is set (the caller's decision; ``replays_graphs`` states
+    the rule), and else runs the steps one at a time."""
+    step = make_sharded_train_step(cfg, mesh,
+                                   march_normal_fn=march_normal_fn,
+                                   culled_march_fn=culled_march_fn, warm=warm)
+    return functools.partial(ChunkRunner, step, graphs=graphs)

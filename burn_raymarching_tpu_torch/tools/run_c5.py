@@ -31,8 +31,11 @@ port's own. The default ``--out`` is runs/c5_torch, so that the JAX
 package's runs/c5 record is never overwritten.
 
 <out>/results.json holds the JAX script's keys, each as it ran, plus
-``eval_wall_s``, ``loss_history``, ``guard_retries`` and ``events`` (what
-each density boundary and gated round decided, ``Trainer.events``).
+``eval_wall_s``, ``loss_history``, ``guard_retries``, ``events`` (what
+each density boundary and gated round decided, ``Trainer.events``) and
+how the steps ran: ``graphs`` (each step a replay of a captured CUDA
+graph), and with ``--distributed`` the mesh's ``backend`` and ``mesh``
+([data, model]; both null without it).
 
 Usage:
   python -m burn_raymarching_tpu_torch.tools.run_c5 [--out runs/c5_torch]
@@ -383,6 +386,13 @@ def main(argv=None) -> dict:
         lr_centers_stages=list(cfg.lr_scale_centers_stages),
         n_final=int(mask.sum().item()), loss_history=trainer.loss_history,
         guard_retries=trainer.guard_retry_count, events=trainer.events)
+    if args.distributed:
+        # The trainer's one record of how its steps ran.
+        (ran,) = [e for e in trainer.events if e["kind"] == "graphs"]
+        results.update({k: ran[k] for k in ("graphs", "backend", "mesh")})
+    else:
+        results.update(graphs=trainer._replays_graphs(), backend=None,
+                       mesh=None)
     if trainer._io:
         with open(os.path.join(args.out, "results.json"), "w") as f:
             json.dump(results, f, indent=1)

@@ -7,12 +7,16 @@ computed in-graph from the step index. Here ``ChunkRunner.run(first, n)``
 runs steps ``first`` .. ``first + n - 1`` of a stage in one of two ways:
 
 * plainly, one step at a time through the step closure: the CPU (CUDA
-  graphs do not exist there), the distributed trainer (its collectives
-  cannot be recorded yet), and the reference that the tests and
-  ``chip_smoke.py`` hold the graph against;
+  graphs do not exist there), the sharded trainer over a gloo mesh (gloo
+  stages CUDA tensors through host memory, which a graph cannot record;
+  parallel/train_step.replays_graphs), and the reference that the tests
+  and ``chip_smoke.py`` hold the graph against;
 * by replaying a CUDA graph that holds ``unroll`` whole steps (sampling,
-  the march, the shade tail, the loss, backward and Adam), captured at
-  the runner's first call: no host work per step beyond the replay.
+  the march, the shade tail, the loss, backward and Adam; in the sharded
+  step over NCCL also its collectives: the model axis's all-to-all,
+  all-gathers, sums and maxima, and the data axis's all-reduce of the
+  gradients and the loss), captured at the runner's first call: no host
+  work per step beyond the replay.
 
 A graph reads its inputs from fixed addresses, so everything a step reads
 and the host changes between steps is a static buffer, updated in place
@@ -23,10 +27,12 @@ and never rebound:
 * ``step``: the stage-relative step (plus polish's offset) as an int64
   tensor, which each recorded step advances by one before it runs, so the
   schedule (step_body.device_schedule) follows it;
-* the sampling generator's seed and offset: the generator is registered
-  with the graph, and each replay draws the next indices of its stream;
-* the warm-start t cache (Trainer.t_cache), which prefill_t_cache fills in
-  place at the stage start and the steps update in place;
+* the sampling generator's seed and offset: the generator (the stage's,
+  folded with the data index in a sharded trainer) is registered with the
+  graph, and each replay draws the next indices of its stream;
+* the warm-start t cache (Trainer.t_cache; a sharded trainer's holds its
+  data rank's pixel shard), which prefill_t_cache fills in place at the
+  stage start and the steps update in place;
 * ``rep_static``: the repulsion's frozen tables, overwritten in place by
   ``refresh_static`` at every chunk start (the JAX package rebuilds them
   at the start of each ``run_chunk``);
@@ -38,8 +44,12 @@ and never rebound:
 Capture: one plain step runs on a side stream first (it creates Adam's
 state and whatever else a first call allocates); every buffer it changed
 is then put back, so the warm-up trains nothing; then the graph records
-``unroll`` steps on the same stream. A capture that fails raises: the card
-never falls back to the plain loop.
+``unroll`` steps on the same stream. In a sharded step the warm-up also
+runs every collective of the step once on each mesh subgroup: NCCL
+creates a subgroup's communicator at its first collective and cannot do
+so inside a capture, so the warm-up is what makes the recorded
+collectives possible. A capture that fails raises: the card never falls
+back to the plain loop.
 
 Launch counts: a replay launches the kernels its capture recorded without
 calling their wrappers, so the runner takes the capture's recordings back

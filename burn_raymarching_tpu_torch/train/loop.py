@@ -19,9 +19,9 @@ ends where the step is a multiple of 100, or the last, the loss is read
 back to the host and logged. On a CUDA dataset every step is a replay of
 a CUDA graph of ``scan_unroll`` steps, captured once per ``run_stage``
 (one stage, one step closure) and freed at its end; the static buffers it
-reads are listed in train/chunk.py. On the CPU the steps run one at a
-time. The kernels are used when ``use_pallas`` is set and the dataset
-lives on a CUDA device.
+reads are listed in train/chunk.py. On the CPU, and in the sharded
+trainer over a gloo mesh, the steps run one at a time. The kernels are
+used when ``use_pallas`` is set and the dataset lives on a CUDA device.
 
 Around that loop stands the quality recipe: per-stage render schedules
 (coverage family, mask sharpness, supersample factor, pixel-area mask) with

@@ -104,22 +104,37 @@ non-zero without the final result line:
                    version; runs/c5_stack3/scene_c5.json through
                    --from-scene on all 100 views, within 0.1 dB of the
                    28.51 dB its record holds;
- 12. distributed — DistributedTrainer on a 1 x 1 mesh over NCCL: a
-                   one-stage cut of config 4, bitwise against the plain
+ 12. distributed — DistributedTrainer on a 1 x 1 mesh over NCCL, whose
+                   steps replay captured CUDA graphs (its "graphs" event
+                   must say so): a one-stage cut of config 4, bitwise
+                   against the same trainer forced to one step at a time
+                   (a subclass's _replays_graphs) and against the plain
                    Trainer started from the init that this script sorts in
                    Morton order (the sharded trainer's row order), and
                    against the plain Trainer in its own row order at the
                    JAX package's tolerance (K3 must have been launched);
-                   and 60 dense config-1 steps
-                   with --turbo (K1 and K2) bitwise against the Trainer
-                   without warm start; then two model ranks on the one card
-                   over gloo (NCCL takes one GPU per rank): each selects
-                   per-tile top-1,024 tables over its half of the rows and
-                   marches through the union-table wrapper, one K3 launch
-                   on [B/2, 2,048] tables; held against one K3 launch on
-                   the same union table (rtol 2e-5, normals 1e-3, the JAX
-                   package's sharding tests) and K3 at that shape against
-                   its plain version;
+                   and 60 dense config-1 steps with --turbo (K1 and K2)
+                   bitwise against its own eager run and the Trainer
+                   without warm start; peak memory of each captured run;
+                   then phase_chunk on each sharded trainer's step
+                   (chunk_dist_c4, chunk_dist_c1: wall, busy and host
+                   launch calls per step, captured and one step at a
+                   time; at most 3 calls a captured step) and on the plain
+                   Trainer's step from the same state (its K4 and frozen
+                   repulsion prep; chunk_dist_*_plain_trainer); then two model
+                   ranks on the one card over gloo (NCCL takes one GPU per
+                   rank; gloo's host staging cannot be recorded, so they
+                   run one step at a time and the line says so): each
+                   selects per-tile top-1,024 tables over its half of the
+                   rows and marches through the union-table wrapper, one
+                   K3 launch on [B/2, 2,048] tables; held against one K3
+                   launch on the same union table (rtol 2e-5, normals
+                   1e-3, the JAX package's sharding tests) and K3 at that
+                   shape against its plain version; with two or more cards,
+                   two NCCL ranks (one per card) train the tiny config-4
+                   cut of tests/torch_dist.py at 1 x 2 and 2 x 1, captured
+                   against one step at a time, bitwise; with one card the
+                   line distributed_nccl_2card says it did not run;
  13. viewer      — the offline and HTTP viewers on
                    runs/c5_headline/scene_c5.json (2,435 spheres) from the
                    default orbit pose: 512² train-model frames through
@@ -2130,6 +2145,7 @@ def dist_rank(rank: int, world: int, port: int, path: str,
     from burn_raymarching_tpu_torch.ops.cuda import culled_march_kernel as k3
     from burn_raymarching_tpu_torch.parallel.collectives import Axis
     from burn_raymarching_tpu_torch.parallel.mesh import init_distributed
+    from burn_raymarching_tpu_torch.parallel.train_step import replays_graphs
     from burn_raymarching_tpu_torch.render.culled import (
         culled_march_normals_xla,
     )
@@ -2168,9 +2184,45 @@ def dist_rank(rank: int, world: int, port: int, path: str,
                     "t_sharded_plain": t_s.cpu(),
                     "n_sharded_plain": n_s.cpu(),
                     "tables": [x.cpu() for x in (cs, rs, qs)],
-                    "launches": launches}, f"{path}.rank{rank}.pt")
+                    "launches": launches,
+                    "graphs": replays_graphs(ro3.device, [ax])},
+                   f"{path}.rank{rank}.pt")
     finally:
         dist.destroy_process_group()
+
+
+def two_card(torch, tmp: str, failures: list) -> None:
+    """tests/test_torch_sharded_chunk.py's two-card case (its ranks from
+    tests/torch_dist.py) on cards 0 and 1:
+    the config-4 cut through DistributedTrainer at 1 x 2 and 2 x 1 over
+    NCCL, captured against the same trainer one step at a time, bitwise on
+    both ranks."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_dist
+
+    from burn_raymarching_tpu_torch.models.scene import PARAM_KEYS
+
+    for data, model in ((1, 2), (2, 1)):
+        t0 = time.perf_counter()
+        out = os.path.join(tmp, f"nccl_{data}x{model}")
+        res = torch_dist.run_ranks(
+            out, 2, torch_dist.graphs_vs_eager, data, model,
+            dict(torch_dist.C4_CUT, use_pallas=True),
+            torch_dist.morton_rays(), out,
+            backend="nccl")
+        gap = max(float(abs(r["graphs"]["params"][k]
+                            - r["eager"]["params"][k]).max())
+                  for r in res for k in PARAM_KEYS)
+        modes = [[r[m]["events"][0]["graphs"] for m in ("graphs", "eager")]
+                 for r in res]
+        emit("distributed_nccl_2card", ran=True, mesh=[data, model],
+             modes=modes, max_param_err_graphs_vs_eager=gap, tol=0.0,
+             k3_launches=[r["graphs"]["k3_launches"] for r in res],
+             seconds=round(time.perf_counter() - t0, 3))
+        check_close(failures, f"2-card NCCL {data}x{model} captured vs one "
+                    f"step at a time", gap, 0.0)
+        if modes != [[True, False]] * 2:
+            failures.append(f"2-card NCCL {data}x{model} modes {modes}")
 
 
 def phase_distributed(torch, dev, tmp: str) -> tuple[dict, dict]:
@@ -2207,7 +2259,55 @@ def phase_distributed(torch, dev, tmp: str) -> tuple[dict, dict]:
         return np.concatenate([getattr(p, k).detach().cpu().numpy()[:n]
                                for k in PARAM_KEYS[:3]], axis=1)
 
-    # (a) A 1 x 1 mesh over NCCL (a world of one on a free localhost port).
+    class EagerDistributed(DistributedTrainer):
+        """The same trainer forced to one step at a time."""
+
+        def _replays_graphs(self):
+            return False
+
+    def graphs_event(trainer) -> dict:
+        (ev,) = events_of(trainer.events, "graphs")
+        return ev
+
+    def sharded_run(trainer) -> tuple:
+        """``trainer.run()`` counted (``counted``) → (params, mask,
+        launches, seconds, device memory in GB: allocated at the start, the
+        peak during the run)."""
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated() / 1e9
+        (p, m), launches, seconds = counted(torch, trainer.run)
+        return p, m, launches, seconds, {
+            "allocated_at_start_gb": start,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+    def max_gap(a, b) -> float:
+        return max(float((getattr(a, k) - getattr(b, k)).abs().max())
+                   for k in PARAM_KEYS)
+
+    def modes(label, trainer, plain_trainer, p, m, t_cache=None) -> dict:
+        """phase_chunk on the sharded trainer's step, captured beside one
+        step at a time, with wall, busy and host launch calls per step of
+        both (the captured step must take at most 3 host launch calls); and
+        on the plain Trainer's step from the same state (K4 with the frozen
+        prep where the sharded step computes the plain repulsion and its
+        prep), for a comparison in one call."""
+        out = {"sharded": phase_chunk(torch, label, trainer, p, m, t_cache),
+               "plain_trainer": phase_chunk(torch, f"{label}_plain_trainer",
+                                            plain_trainer, p, m, t_cache)}
+        calls = out["sharded"]["graph"]["host_launches_per_step"]
+        if calls > 3:
+            failures.append(f"{label}: {calls} host launch calls a "
+                            f"captured step (at most 3)")
+        return {who: {mode: {key: o[mode][key] for key in (
+            "wall_ms_per_step", "device_busy_ms_per_step",
+            "device_events_per_step", "host_launches_per_step",
+            "graph_launches_per_step")} for mode in ("graph", "plain")}
+            for who, o in out.items()}
+
+    # (a) A 1 x 1 mesh over NCCL (a world of one on a free localhost port):
+    # the sharded steps replay captured graphs (the trainer's "graphs"
+    # event), and are held bitwise against the same trainer one step at a
+    # time in this call and against the plain Trainer.
     init_distributed(dev)
     try:
         argv = c4_argv(os.path.join(tmp, "data_c4"),
@@ -2218,7 +2318,15 @@ def phase_distributed(torch, dev, tmp: str) -> tuple[dict, dict]:
         ds = build_dataset(cfg, device=dev)
         dist_trainer = DistributedTrainer(cfg, ds, data=1, model=1,
                                           log=lambda s: None)
-        (p_d, m_d), launches_c4, seconds = counted(torch, dist_trainer.run)
+        p_d, m_d, launches_c4, seconds, memory_c4 = sharded_run(dist_trainer)
+        eager_trainer = EagerDistributed(cfg, ds, data=1, model=1,
+                                         log=lambda s: None)
+        p_e, _, _, seconds_eager, _ = sharded_run(eager_trainer)
+        ran = [graphs_event(dist_trainer), graphs_event(eager_trainer)]
+        if [ev["graphs"] for ev in ran] != [True, False]:
+            raise AssertionError(f"1x1 NCCL modes {ran}: the captured run "
+                                 f"must replay graphs, the eager one not")
+        err_eager = max_gap(p_d, p_e)
         # The sharded trainer Morton-sorts its rows at stage start; the plain
         # Trainer keeps them as they come. Two references, neither running
         # the sharded trainer's hook: (1) the plain Trainer on the init
@@ -2244,21 +2352,22 @@ def phase_distributed(torch, dev, tmp: str) -> tuple[dict, dict]:
                                      for k in PARAM_KEYS[:3]),
                                    p.light_dir.detach(), p.ambient.detach())
 
-        p_s, m_s = SortedInit(cfg, ds, log=lambda s: None).run()
+        sorted_trainer = SortedInit(cfg, ds, log=lambda s: None)
+        p_s, m_s = sorted_trainer.run()
         p_t, m_t = Trainer(cfg, ds, log=lambda s: None).run()
         if not int(m_d.sum()) == int(m_s.sum()) == int(m_t.sum()) == n:
             raise AssertionError(f"live rows {int(m_d.sum())} (sharded), "
                                  f"{int(m_s.sum())} / {int(m_t.sum())} "
                                  f"(plain), {n} (init)")
-        err_sorted = max(float((getattr(p_d, k) - getattr(p_s, k))
-                               .abs().max()) for k in PARAM_KEYS)
+        err_sorted = max_gap(p_d, p_s)
         rows_d, rows_t = table_rows(p_d, n), table_rows(p_t, n)[order]
         excess = float(np.max(np.abs(rows_d - rows_t)
                               - (4e-3 + 2e-2 * np.abs(rows_t))))
         err_light = max(float((getattr(p_d, k) - getattr(p_t, k))
                               .abs().max()) for k in ("light_dir", "ambient"))
         emit("distributed_c4", mesh=[1, 1], backend=dist.get_backend(),
-             stages=1, steps=DIST_STEPS, n_live=n,
+             stages=1, steps=DIST_STEPS, n_live=n, modes=ran,
+             max_param_err_vs_eager_sharded_run=err_eager,
              max_param_err_vs_sorted_init_trainer=err_sorted, tol=0.0,
              own_order=dict(
                  max_row_err=float(np.abs(rows_d - rows_t).max()),
@@ -2268,7 +2377,10 @@ def phase_distributed(torch, dev, tmp: str) -> tuple[dict, dict]:
                      np.abs(rows_d - rows_t)
                      > 4e-3 + 2e-2 * np.abs(rows_t), axis=1))),
                  max_light_ambient_err=err_light, light_ambient_tol=4e-4),
-             seconds=seconds, launches=launches_c4)
+             seconds=seconds, seconds_eager=seconds_eager,
+             memory=memory_c4, launches=launches_c4)
+        check_close(failures, "1x1 captured DistributedTrainer vs the same "
+                    "run one step at a time", err_eager, 0.0)
         check_close(failures, "1x1 DistributedTrainer vs the Trainer on the "
                     "Morton-sorted init", err_sorted, 0.0)
         check_close(failures, "1x1 DistributedTrainer rows vs the Trainer "
@@ -2277,6 +2389,8 @@ def phase_distributed(torch, dev, tmp: str) -> tuple[dict, dict]:
         check_close(failures, "1x1 DistributedTrainer light/ambient vs the "
                     "Trainer in its own order", err_light, 4e-4)
         require_launches(launches_c4, ("culled_march",), "1x1 culled")
+        step_c4 = modes("dist_c4", dist_trainer, sorted_trainer, p_d, m_d,
+                        dist_trainer.t_cache)
 
         # Dense config-1 steps with --turbo through the sharded step: K1
         # and K2. A 1 x 1 mesh never warms the dense march (the JAX
@@ -2288,19 +2402,32 @@ def phase_distributed(torch, dev, tmp: str) -> tuple[dict, dict]:
             "--steps-dir", os.path.join(tmp, "dist_c1", "steps"),
             "--checkpoint-dir", ""]))
         ds1 = build_dataset(cfg1, device=dev)
-        (p_d, m_d), launches_c1, seconds = counted(torch, lambda: (
-            DistributedTrainer(cfg1, ds1, data=1, model=1,
-                               log=lambda s: None).run()))
-        p_t, m_t = Trainer(dataclasses.replace(cfg1, warm_start=False), ds1,
-                           log=lambda s: None).run()
-        err_c1 = max(float((getattr(p_d, k) - getattr(p_t, k)).abs().max())
-                     for k in PARAM_KEYS)
-        emit("distributed_c1", mesh=[1, 1], steps=DIST_STEPS,
+        dist_c1 = DistributedTrainer(cfg1, ds1, data=1, model=1,
+                                     log=lambda s: None)
+        p_d, m_d, launches_c1, seconds, memory_c1 = sharded_run(dist_c1)
+        eager_c1 = EagerDistributed(cfg1, ds1, data=1, model=1,
+                                    log=lambda s: None)
+        p_e, _, _, seconds_eager, _ = sharded_run(eager_c1)
+        ran = [graphs_event(dist_c1), graphs_event(eager_c1)]
+        if [ev["graphs"] for ev in ran] != [True, False]:
+            raise AssertionError(f"1x1 NCCL dense modes {ran}")
+        plain_c1 = Trainer(dataclasses.replace(cfg1, warm_start=False), ds1,
+                           log=lambda s: None)
+        p_t, m_t = plain_c1.run()
+        err_c1 = max_gap(p_d, p_t)
+        err_c1_eager = max_gap(p_d, p_e)
+        emit("distributed_c1", mesh=[1, 1], steps=DIST_STEPS, modes=ran,
+             max_param_err_vs_eager_sharded_run=err_c1_eager,
              max_param_err_vs_trainer=err_c1, tol=0.0, seconds=seconds,
+             seconds_eager=seconds_eager, memory=memory_c1,
              launches=launches_c1)
+        check_close(failures, "1x1 captured dense DistributedTrainer vs the "
+                    "same run one step at a time", err_c1_eager, 0.0)
         check_close(failures, "1x1 dense DistributedTrainer vs Trainer",
                     err_c1, 0.0)
         require_launches(launches_c1, list(c1_counters()), "1x1 dense")
+        step_c1 = modes("dist_c1", dist_c1, plain_c1, p_d, m_d)
+        emit("distributed_steps", c4=step_c4, c1=step_c1)
     finally:
         dist.destroy_process_group()
 
@@ -2363,7 +2490,11 @@ def phase_distributed(torch, dev, tmp: str) -> tuple[dict, dict]:
     union_case = k3_case(torch, u_slice, C4_K, 16,
                          (t1[:half] * 0.8).contiguous(), "union shape",
                          failures)
+    graphs = [rk["graphs"] for rk in ranks]
     emit("distributed_model_axis", ranks=2, backend="gloo (one card)",
+         graphs=graphs, why="one step at a time: gloo stages CUDA tensors "
+         "through host memory, which a CUDA graph cannot record (NCCL takes "
+         "one card per rank)",
          tiles=args[0].shape[0], per_rank_table=C4_BUDGET // 2,
          union_table=union[0].shape[1], vs_one_rank_k3=out,
          sharded_plain_vs_plain_on_union=plain_gap,
@@ -2372,6 +2503,16 @@ def phase_distributed(torch, dev, tmp: str) -> tuple[dict, dict]:
     if any(rk["launches"] != 2 for rk in ranks):
         raise AssertionError("the union-table march did not launch K3 once "
                              "per march on every rank")
+    if any(graphs):
+        raise AssertionError("a gloo mesh must run its steps one at a time")
+
+    # (c) Two NCCL ranks, one per card: the sharded trainer captured against
+    # itself one step at a time (tests/test_torch_sharded_chunk.py's case
+    # (d)), where the machine has two cards.
+    if torch.cuda.device_count() < 2:
+        emit("distributed_nccl_2card", ran=False, why="one card")
+    else:
+        two_card(torch, tmp, failures)
     if failures:
         raise AssertionError("; ".join(failures))
     launches = {name: launches_c4[name] + launches_c1[name]

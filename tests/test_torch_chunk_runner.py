@@ -50,6 +50,7 @@ from burn_raymarching_tpu_torch.models.scene import (
 from burn_raymarching_tpu_torch.parallel.distributed import (
     DistributedTrainer,
 )
+from burn_raymarching_tpu_torch.parallel.train_step import replays_graphs
 from burn_raymarching_tpu_torch.train.loop import Trainer
 from burn_raymarching_tpu_torch.train.optimizer import (
     make_optimizer,
@@ -110,15 +111,39 @@ def test_sharded_chunk_target_matches_jax(steps, spc, want):
     assert got == jax_chunk == want
 
 
+def _axes_of(*backends):
+    """Stand-ins for mesh axes that carry only a backend (a real Axis
+    needs a process group)."""
+    return [types.SimpleNamespace(backend=b) for b in backends]
+
+
 def test_distributed_trainer_steps_one_at_a_time():
-    """The sharded steps are not captured (module docstring of
-    train/chunk.py); the single-card Trainer captures on a CUDA dataset
-    only."""
-    assert DistributedTrainer._replays_graphs(None) is False
+    """On the CPU the sharded steps run one at a time (gloo, by the
+    backend rule of parallel/train_step.replays_graphs), and the
+    single-card Trainer captures on a CUDA dataset only."""
+    assert replays_graphs(torch.device("cpu"),
+                          _axes_of("gloo", "gloo")) is False
     ro, rd, tgt = _rays(8)
     tr = Trainer(TrainConfig(batch_size=16, use_pallas=False),
                  RayDataset(ro, rd, tgt), log=lambda s: None)
     assert tr._replays_graphs() is False
+
+
+@pytest.mark.parametrize("device,backends,graphs", [
+    ("cpu", ("gloo", "gloo"), False),
+    ("cuda", ("gloo", "gloo"), False),
+    ("cuda", ("nccl", "gloo"), False),
+    ("cpu", ("nccl", "nccl"), False),
+    ("cuda", ("nccl", "nccl"), True)])
+def test_replays_graphs_rule(device, backends, graphs):
+    """The backend rule: the sharded steps replay captured graphs on a
+    CUDA dataset whose mesh axes all run NCCL, and run one at a time over
+    gloo (the CPU; ranks sharing a card), whose host staging a graph
+    cannot record. DistributedTrainer returns the decision its
+    construction stored."""
+    assert replays_graphs(torch.device(device), _axes_of(*backends)) is graphs
+    stub = types.SimpleNamespace(_graphs=graphs)
+    assert DistributedTrainer._replays_graphs(stub) is graphs
 
 
 # --- the in-graph schedule ---------------------------------------------- #

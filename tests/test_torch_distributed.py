@@ -87,7 +87,11 @@ def test_distributed_full_featureset_density(tmp_path, data, model,
         assert np.isfinite(r["t_cache"]).all()
         assert r["t_cache"].max() > 0.0
         assert r["params"]["centers"].shape[0] % (model * g) == 0
-        assert [e["kind"] for e in r["events"]] == ["density"]
+        # The mode the trainer decided at construction (gloo: one step
+        # at a time), then the density boundary.
+        assert [e["kind"] for e in r["events"]] == ["graphs", "density"]
+        assert r["events"][0] == dict(kind="graphs", graphs=False,
+                                      backend="gloo", mesh=[data, model])
 
 
 def test_distributed_union_march_pads_the_prefill_chunk(tmp_path):

@@ -18,6 +18,8 @@ import dataclasses
 import importlib.util
 import json
 import os
+import subprocess
+import sys
 
 import pytest
 from torch_parity import tiny_knot_dataset
@@ -154,6 +156,34 @@ def test_results_record_what_ran(tmp_path, data_dir):
         assert r["init"] > 0 and r["trained"] > 0
     assert os.path.exists(os.path.join(out, "points_dense.json"))
     assert os.path.exists(os.path.join(out, "scene_c5.json"))
+
+
+def test_distributed_results_record_how_the_steps_ran(tmp_path, data_dir):
+    """``--distributed`` on the CPU (a gloo world of one, in its own
+    process, as torch.distributed.run would start it): results.json
+    records that the sharded steps ran one at a time over gloo on a 1 x 1
+    mesh, as the trainer's "graphs" event does; a plain run records its
+    mode with a null backend and mesh."""
+    out = str(tmp_path / "dist")
+    argv = ["--out", out, "--data", data_dir, "--views", "2", "--size", "32",
+            "--init-n", "120", "--cull-budget", "64", "--batch", "512",
+            "--steps", "2", "--stages", "1", "--skip-ceiling", "--cpu"]
+    proc = subprocess.run(
+        [sys.executable, "-m", "burn_raymarching_tpu_torch.tools.run_c5",
+         *argv, "--distributed"], cwd=ROOT, capture_output=True, text=True,
+        timeout=300, env={**os.environ, "PYTHONPATH": ROOT})
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    with open(os.path.join(out, "results.json")) as f:
+        saved = json.load(f)
+    assert saved["distributed"] is True
+    assert (saved["graphs"], saved["backend"], saved["mesh"]) == (
+        False, "gloo", [1, 1])
+    graphs = [e for e in saved["events"] if e["kind"] == "graphs"]
+    assert graphs == [dict(kind="graphs", graphs=False, backend="gloo",
+                           mesh=[1, 1])]
+    plain = run_c5.main([*argv[:1], str(tmp_path / "plain"), *argv[2:]])
+    assert (plain["graphs"], plain["backend"], plain["mesh"]) == (
+        False, None, None)
 
 
 def test_ceiling_only_merges_into_results(tmp_path, data_dir):

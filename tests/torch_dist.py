@@ -1,5 +1,6 @@
 """Multi-rank helpers for the port's sharding tests: spawn ``world``
-processes that join one gloo process group through a FileStore under the
+processes that join one gloo process group (NCCL, one card per rank, for
+the ``cuda`` tests that need two cards) through a FileStore under the
 test's tmp_path (no TCP port, so parallel pytest workers never collide),
 run one function per rank and hand its result back to the test.
 
@@ -24,15 +25,17 @@ import torch
 RANK_TIMEOUT_S = 120.0
 
 
-def _rank_main(rank: int, world: int, store: str, out_dir: str, fn, args,
-               kwargs):
+def _rank_main(rank: int, world: int, store: str, out_dir: str,
+               backend: str, fn, args, kwargs):
     torch.set_num_threads(1)
     import torch.distributed as dist
 
     path = os.path.join(out_dir, f"rank{rank}.pkl")
     try:
+        if backend == "nccl":
+            torch.cuda.set_device(rank)
         dist.init_process_group(
-            "gloo", init_method=f"file://{store}", world_size=world,
+            backend, init_method=f"file://{store}", world_size=world,
             rank=rank, timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
         result = fn(rank, world, *args, **kwargs)
         dist.barrier()
@@ -46,10 +49,11 @@ def _rank_main(rank: int, world: int, store: str, out_dir: str, fn, args,
 
 
 def run_ranks(tmp_path, world: int, fn, *args,
-              timeout: float = RANK_TIMEOUT_S, **kwargs) -> list:
-    """``fn(rank, world, *args, **kwargs)`` on ``world`` gloo ranks → the
-    results in rank order; raises with the first failing rank's
-    traceback."""
+              timeout: float = RANK_TIMEOUT_S, backend: str = "gloo",
+              **kwargs) -> list:
+    """``fn(rank, world, *args, **kwargs)`` on ``world`` ranks of
+    ``backend`` (gloo; with "nccl" rank r takes card r) → the results in
+    rank order; raises with the first failing rank's traceback."""
     import torch.multiprocessing as mp
 
     # A fresh directory for every call: a FileStore file left by an earlier
@@ -61,7 +65,8 @@ def run_ranks(tmp_path, world: int, fn, *args,
     store = os.path.join(out_dir, "store")
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_rank_main,
-                         args=(r, world, store, out_dir, fn, args, kwargs))
+                         args=(r, world, store, out_dir, backend, fn, args,
+                               kwargs))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -89,6 +94,35 @@ def run_ranks(tmp_path, world: int, fn, *args,
 
 def nn(x):
     return x.detach().cpu().numpy()
+
+
+# A tiny config-4 cut: tile culling, tile sampling, cluster repulsion
+# (the sharded step's plain version with its prep computed in the step),
+# warm start, decoupled decay; two stages with a density boundary.
+C4_CUT = dict(batch_size=128, stages=2, steps_per_stage=8, steps_per_call=4,
+              use_pallas=False, checkpoint_dir=None, use_culling=True,
+              cull_tile=16, cull_budget=8, cluster_repulsion=True,
+              cull_cluster_group=8, warm_start=True, warm_steps=4,
+              sample_mode="tile", dataset_order="morton", init_n=12,
+              init_layout="cloud", weight_decay_mode="decoupled")
+# A tiny config-1 cut: the dense step (K1 + K2 on the card).
+C1_CUT = dict(batch_size=1024, stages=2, steps_per_stage=8,
+              steps_per_call=4, use_pallas=False, checkpoint_dir=None)
+
+
+def morton_rays(size: int = 32):
+    """The tests' 32 x 32 rig in Morton order: rays from [0, 0.5, -2.5],
+    targets clip(|rd|, 0, 1)."""
+    from burn_raymarching_tpu_torch.data.camera import create_camera_rays
+    from burn_raymarching_tpu_torch.utils.morton import (
+        multi_view_morton_permutation,
+    )
+
+    ro, rd = create_camera_rays(size, size, [0.0, 0.5, -2.5], [0, 0, 0],
+                                50.0)
+    ro, rd = ro.numpy(), rd.numpy()
+    perm = multi_view_morton_permutation(size, size, 1)
+    return ro[perm], rd[perm], np.clip(np.abs(rd[perm]), 0, 1)
 
 
 # --------------------------------------------------------------------------
@@ -401,3 +435,174 @@ def union_march_cuda(rank, world, inp, t_init):
         t_init=None if t0 is None else t0.double(), **kw)
     return {"t_k": nn(t_k), "n_k": nn(n_k), "t_p": nn(t_p), "n_p": nn(n_p),
             "t_64": nn(t_64), "n_64": nn(n_64), "launches": launches}
+
+
+def _stage_setup(tr, cfg):
+    """What Trainer.run_stage sets up for stage 0 of ``tr``: (padded params
+    on this rank, mask, optimizer, cluster table, sampling pools)."""
+    from burn_raymarching_tpu_torch.models.scene import pad_params
+    from burn_raymarching_tpu_torch.train.optimizer import (
+        anneal_for_step,
+        make_optimizer,
+    )
+
+    params = tr._prepare_stage_params(tr._init_params())
+    padded, mask = tr._place(*pad_params(params, tr._bucket(params.n)))
+    if tr.warm:
+        tr.prefill_t_cache(padded, mask, anneal_for_step(cfg, 0, 1)[1])
+    return (padded, mask, make_optimizer(cfg, padded),
+            tr._build_cluster_table(padded, mask), *tr._sample_fg)
+
+
+def sharded_chunk_vs_steps(rank, world, data, model, cfg_kw, dataset_arrays,
+                           steps):
+    """parallel/train_step.make_sharded_chunk_runner's runner for ``steps``
+    steps of stage 0, and ``steps`` calls of make_sharded_train_step (each
+    followed by the learning rates and Adam, as the runner's step does),
+    both from the stage start of the same DistributedTrainer and a
+    generator of the same seed → numpy of both: parameters, last loss,
+    t cache, generator state, and whether the runner replays graphs."""
+    from burn_raymarching_tpu_torch.config import TrainConfig
+    from burn_raymarching_tpu_torch.data.dataset import RayDataset
+    from burn_raymarching_tpu_torch.ops.cuda.culled_march_kernel import (
+        culled_march_normals,
+    )
+    from burn_raymarching_tpu_torch.parallel.distributed import (
+        DistributedTrainer,
+    )
+    from burn_raymarching_tpu_torch.parallel.train_step import (
+        make_sharded_chunk_runner,
+        make_sharded_train_step,
+    )
+    from burn_raymarching_tpu_torch.train.optimizer import set_group_lrs
+    from burn_raymarching_tpu_torch.train.step_body import lr_scale_tree
+
+    cfg = TrainConfig(**cfg_kw)
+    tr = DistributedTrainer(cfg, RayDataset(*dataset_arrays), data=data,
+                            model=model, log=lambda s: None)
+    kernels = dict(culled_march_fn=culled_march_normals, warm=tr.warm)
+    scales = lr_scale_tree(cfg, 0)
+    out = {}
+    for mode in ("runner", "steps"):
+        # The stage start refills the whole t cache (prefill_t_cache).
+        padded, mask, opt, clusters, fg, n_fg = _stage_setup(tr, cfg)
+        gen = tr._stage_generator(np.asarray([0, 7], np.uint32))
+        if mode == "runner":
+            runner = make_sharded_chunk_runner(
+                cfg, tr.mesh, graphs=tr._replays_graphs(), **kernels)(
+                padded, opt, scales, 0, mask, tr.dataset.packed, fg, n_fg,
+                gen, t_cache=tr.t_cache, clusters=clusters)
+            runner.run(1, steps)
+            loss, graphs = runner.loss, runner.graphs
+        else:
+            step = make_sharded_train_step(cfg, tr.mesh, **kernels)
+            for s in range(1, steps + 1):
+                loss, lr = step(padded, gen, 0, torch.tensor(s), mask,
+                                tr.dataset.packed, fg, n_fg,
+                                t_cache=tr.t_cache, clusters=clusters)
+                set_group_lrs(opt, lr, scales)
+                opt.step()
+            graphs = None
+        out[mode] = {"params": {k: nn(getattr(padded, k)) for k in KEYS},
+                     "loss": float(loss), "graphs": graphs,
+                     "t_cache": (None if tr.t_cache is None
+                                 else nn(tr.t_cache)),
+                     "generator": nn(gen.get_state())}
+    return out
+
+
+def graphs_vs_eager(rank, world, data, model, cfg_kw, dataset_arrays,
+                    out_dir):
+    """DistributedTrainer.run on this rank's card, replaying captured
+    graphs over NCCL (over gloo: on the CPU, one step at a time), then the
+    same trainer forced to one step at a time (a subclass's
+    ``_replays_graphs``) → both runs' summaries and K3's launches in the
+    first run."""
+    import torch.distributed as dist
+
+    from burn_raymarching_tpu_torch.config import TrainConfig
+    from burn_raymarching_tpu_torch.data.dataset import RayDataset
+    from burn_raymarching_tpu_torch.ops.cuda import culled_march_kernel as k3
+    from burn_raymarching_tpu_torch.parallel.distributed import (
+        DistributedTrainer,
+    )
+
+    class Eager(DistributedTrainer):
+        def _replays_graphs(self):
+            return False
+
+    os.makedirs(os.path.join(out_dir, f"rank{rank}"), exist_ok=True)
+    os.chdir(os.path.join(out_dir, f"rank{rank}"))
+    cfg = TrainConfig(**cfg_kw)
+    dev = (torch.device("cuda", rank) if dist.get_backend() == "nccl"
+           else torch.device("cpu"))
+    ds = RayDataset(*dataset_arrays, device=dev)
+    out = {}
+    for mode, cls in (("graphs", DistributedTrainer), ("eager", Eager)):
+        k3.culled_march_normals.launches = 0
+        tr = cls(cfg, ds, data=data, model=model, log=lambda s: None)
+        out[mode] = _run_summary(tr, *tr.run())
+        out[mode]["k3_launches"] = k3.culled_march_normals.launches
+    return out
+
+
+def sharded_chunks_with_draws(rank, world, data, model, cfg_kw,
+                              dataset_arrays, raw, slots, t_init, draws,
+                              stage, chunk):
+    """make_sharded_chunk_runner's runner (one step at a time, gloo) over
+    ``len(draws)`` steps of ``stage`` in chunks of ``chunk``, from the
+    whole padded table ``raw`` ({key: live rows}, padded to ``slots``) and
+    the whole t cache ``t_init``, with the batch draws injected:
+    ``draws[s][d]`` are data rank d's ids at step s + 1 (tile ids with
+    tile sampling, else pixel ids; shard-local) → the loss at each chunk
+    end and the schedule the step computed at each step ([step, progress,
+    smooth_k, uniform_ratio, lr])."""
+    import burn_raymarching_tpu_torch.train.step_body as sb
+    from burn_raymarching_tpu_torch.config import TrainConfig
+    from burn_raymarching_tpu_torch.data.dataset import RayDataset
+    from burn_raymarching_tpu_torch.models.scene import (
+        pad_params,
+        params_from_numpy,
+    )
+    from burn_raymarching_tpu_torch.parallel.distributed import (
+        DistributedTrainer,
+    )
+    from burn_raymarching_tpu_torch.parallel.train_step import (
+        make_sharded_chunk_runner,
+    )
+    from burn_raymarching_tpu_torch.train.optimizer import make_optimizer
+
+    cfg = TrainConfig(**cfg_kw)
+    tr = DistributedTrainer(cfg, RayDataset(*dataset_arrays), data=data,
+                            model=model, log=lambda s: None)
+    padded, mask = tr._place(*pad_params(params_from_numpy(raw), slots))
+    if tr.warm:
+        lo = tr.data_axis.index * tr.dataset.p_local
+        tr.t_cache.copy_(torch.as_tensor(t_init[lo:lo + tr.dataset.p_local]))
+    tile = cfg.cull_tile if cfg.sample_mode == "tile" else 1
+
+    def idx_fn(step):
+        ids = torch.as_tensor(draws[step - 1][tr.data_axis.index]).long()
+        return (ids[:, None] * tile + torch.arange(tile)).reshape(-1)
+
+    seen = []
+    schedule = sb.device_schedule
+
+    def recording(cfg_, stage_, step):
+        out = schedule(cfg_, stage_, step)
+        seen.append([int(step)] + [float(x) for x in out])
+        return out
+
+    sb.device_schedule = recording
+    fg, n_fg = tr._sample_fg
+    runner = make_sharded_chunk_runner(
+        cfg, tr.mesh, graphs=tr._replays_graphs(), warm=tr.warm)(
+            padded, make_optimizer(cfg, padded),
+            sb.lr_scale_tree(cfg, stage), stage, mask, tr.dataset.packed,
+            fg, n_fg, torch.Generator().manual_seed(0), t_cache=tr.t_cache,
+            clusters=tr._build_cluster_table(padded, mask), idx_fn=idx_fn)
+    losses = []
+    for start in range(0, len(draws), chunk):
+        runner.run(start + 1, chunk)
+        losses.append(float(runner.loss))
+    return {"losses": losses, "schedule": seen}
