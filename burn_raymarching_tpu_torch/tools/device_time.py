@@ -6,9 +6,9 @@ the launches the host made per call (kernel launches, copies, memsets and
 CUDA-graph launches, each one runtime or driver call). Kernels that a
 CUDA-graph replay runs appear as device events like any other.
 
-``chip_smoke.py`` (its config-1, config-4, refine and config-5 phases) and
-``tools/bench_large.py`` report these numbers, and ``PERF.md`` compares
-them across PRs. Change what this module counts only together with a new
+``chip_smoke.py`` (its config-1, config-4, refine and config-5 phases),
+``tools/bench_large.py`` and ``tools/bench.py`` report these numbers, and
+``PERF.md`` compares them across PRs. Change what this module counts only together with a new
 row of readings in ``PERF.md``: an edit here changes every figure read
 through it.
 """
@@ -37,8 +37,8 @@ LAUNCH_CALLS = ("LaunchKernel", "GraphLaunch", "MemcpyAsync", "MemsetAsync",
                 "cuMemcpy", "cuMemset")
 
 
-def profile_calls(one, steps: int, margin_s: float = WINDOW_MARGIN_S
-                  ) -> dict:
+def profile_calls(one, steps: int, margin_s: float = WINDOW_MARGIN_S,
+                  steps_per_call: int = 1) -> dict:
     """torch.profiler over ``one(0)`` .. ``one(steps - 1)``, read from its
     trace's device events (kernels, copies, memsets; not the annotation
     spans that the trace also places on the device) → busy device time per
@@ -48,7 +48,9 @@ def profile_calls(one, steps: int, margin_s: float = WINDOW_MARGIN_S
     host's launch calls per step (LAUNCH_CALLS among the runtime and driver
     calls). The window stays open ``margin_s`` on each side of the calls:
     torch.profiler drops device events stamped before it opens
-    (utils/profiling.trace)."""
+    (utils/profiling.trace). When each ``one(s)`` runs ``steps_per_call``
+    training steps (a replay of a graph of several steps), the per-step
+    figures are per training step: each is divided by it as well."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -59,6 +61,7 @@ def profile_calls(one, steps: int, margin_s: float = WINDOW_MARGIN_S
             one(s)
         torch.cuda.synchronize()
         time.sleep(margin_s)
+    steps *= steps_per_call
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)

@@ -144,7 +144,7 @@ class ChunkRunner:
             for fn, d in self.per_replay.items():
                 fn.launches += d
 
-    def _state(self) -> dict:
+    def snapshot(self) -> dict:
         """Copies of what a step changes."""
         return {"params": [p.detach().clone()
                            for p in self.params.parameters()],
@@ -154,8 +154,9 @@ class ChunkRunner:
                 "step": self.step.clone()}
 
     @torch.no_grad()
-    def _restore(self, saved: dict) -> None:
-        """Put back what ``_state`` copied; Adam's state to its start."""
+    def restore(self, saved: dict) -> None:
+        """Put back what ``snapshot`` copied; Adam's state to its start.
+        After a capture the graph replays from the restored buffers."""
         for p, s in zip(self.params.parameters(), saved["params"]):
             p.copy_(s)
         if self.t_cache is not None:
@@ -175,13 +176,13 @@ class ChunkRunner:
             self.idx = torch.empty((self.unroll,) + tuple(idx0.shape),
                                    dtype=idx0.dtype, device=dev)
             self.idx[0].copy_(idx0)
-        saved = self._state()
+        saved = self.snapshot()
         side = torch.cuda.Stream(device=dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             self._one(None if self.idx is None else self.idx[0])
         torch.cuda.current_stream(dev).wait_stream(side)
-        self._restore(saved)
+        self.restore(saved)
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
         before = build.launch_counts()

@@ -148,7 +148,23 @@ non-zero without the final result line:
                    the HTTP viewer (page, /scene, low and full frames of
                    both models, decoded with read_png); one frame under
                    utils.profiling.trace, whose trace must hold the
-                   annotation and K1.
+                   annotation and K1;
+ 14. bench       — tools/bench.main at full width (the port's bench.py:
+                   16,384 rays, 100 live of 128 slots, 200 chained steps a
+                   call through captured graphs of 4 steps, best of 3; the
+                   plain, kernel (K1 cold) and warm (K1 warm + K2)
+                   variants, then the flagship: the warm culled step at
+                   M = 51,200 through tools/bench_large.py, K3 and K4): its
+                   one stdout JSON line (vs_baseline > 1) and each
+                   variant's figures on phase lines; each variant's
+                   launches (every count set to 0 before it, read after
+                   it) held to once per step it ran (none on the plain
+                   step; K1 and its pack also once per prefill chunk); the
+                   flagship's K3, K4 fwd and bwd launched, its steps
+                   replaying graphs with at most 3 host launch calls a
+                   step; the captured warm bench step held bitwise to the
+                   same 8 steps one at a time, from the same start and
+                   seed and again after the bench's reset to the start.
 K1's early exit (``early_exit=True``; no path sets it) is held at every
 table width of phase 3 against the fixed-count launch, against its plain
 version, and timed beside the fixed-count launch.
@@ -157,8 +173,9 @@ the training path (``launches``; a kernel that a CUDA-graph replay launches
 counts once per replay, train/chunk.py), on the quality path that runs it
 (``launches_quality``: phase 9 for K3 and K4, phase 10 for K1 and K2), on
 the config-5 path (``launches_c5``), on the distributed paths
-(``launches_distributed``) and on the viewer's (``launches_viewer``), error, ``ms`` (the wrapper call between CUDA
-events),
+(``launches_distributed``), on the viewer's (``launches_viewer``) and on
+the bench's (``launches_bench``: its three variants and the flagship),
+error, ``ms`` (the wrapper call between CUDA events),
 ``device_ms`` (the same call replayed from a CUDA graph), the plain
 version's time, ``bound_ms`` (the least time the card could take, see
 ``bound``) and ``library_ms`` (one PyTorch call computing the same function,
@@ -2547,6 +2564,145 @@ SOURCES = {
 }
 
 
+# Phase 14: the bench's launches per variant, by wrapper name (the
+# ``kernels`` line's names → the wrappers' __name__).
+BENCH_ONCE_PER_STEP = {"plain": (),
+                       "kernel": ("march_shade", "march_pack"),
+                       "warm": ("march_shade", "march_pack", "shade_pack",
+                                "shade_fwd", "shade_bwd")}
+BENCH_LARGE_KERNELS = ("culled_march", "repulsion_fwd", "repulsion_bwd")
+
+
+def flagship_k3(torch, dev, failures: list) -> dict:
+    """K3 at the bench flagship's shape (tools/bench.large_flagship): one
+    step's batch, sampled and sorted as the step samples it, in 32 tiles
+    of 512 rays against hierarchical top-256 tables of the 51,200-sphere
+    cloud (cluster group 64, cluster budget 32), 16 warm steps from the
+    Trainer's prefilled t cache x warm_backoff, at the last stage's
+    smooth_k → k3_case's figures."""
+    from burn_raymarching_tpu_torch.data.dataset import gather_batch
+    from burn_raymarching_tpu_torch.models.scene import activate
+    from burn_raymarching_tpu_torch.tools import bench
+    from burn_raymarching_tpu_torch.tools import bench_large as bl
+    from burn_raymarching_tpu_torch.train.loop import Trainer
+    from burn_raymarching_tpu_torch.train.step_body import (
+        culled_tables,
+        sample_step_indices,
+        schedule_for_step,
+    )
+
+    cfg = bench.flagship_config()
+    ds = bl.make_dataset(10 * 256 * 256, 256, dev)
+    padded, mask = bl.make_params(LARGE_INIT_N, dev)
+    tr = Trainer(cfg, ds, log=lambda s: None)
+    tr.t_cache = tr._init_t_cache()
+    tr.prefill_t_cache(padded, mask, cfg.max_smooth_k)
+    clusters = tr._build_cluster_table(padded, mask)
+    _, k, ratio, _ = schedule_for_step(cfg, cfg.stages - 1, 1)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    fg, n_fg = tr._sample_fg
+    idx = torch.sort(sample_step_indices(
+        cfg, gen, ds.packed.shape[0], fg, n_fg, cfg.batch_size,
+        ratio)).values
+    ro, rd, _ = gather_batch(ds.packed, idx)
+    b, tile = cfg.batch_size // cfg.cull_tile, cfg.cull_tile
+    with torch.no_grad():
+        c, _, r, _, _ = activate(padded)
+        _, _, cs, rs, qs = culled_tables(cfg, ro, rd, c, r, k, mask,
+                                         clusters)
+    args = (ro.reshape(b, tile, 3), rd.reshape(b, tile, 3), cs, rs, qs)
+    t0 = (tr.t_cache[idx] * cfg.warm_backoff).reshape(b, tile, 1)
+    return k3_case(torch, args, k, cfg.warm_steps, t0.contiguous(),
+                   "flagship warm", failures)
+
+
+def phase_bench(torch, dev, tmp: str) -> tuple[dict, dict]:
+    """tools/bench.main at full width (its stdout line captured: exactly
+    one JSON line with bench.py's four keys, vs_baseline > 1) → the
+    launches of the bench's path per kernel. Each variant's launches (the
+    bench sets every count to 0 before a variant and reads them after it;
+    a replay counts once per graph launch, train/chunk.py): ``plain`` none,
+    ``kernel`` K1 and its pack once per step run, ``warm`` K1, its pack, K2
+    pack, fwd and bwd once per step plus K1 and its pack once per prefill
+    chunk; the flagship K3 and K4 fwd and bwd. Then the captured warm bench
+    step held to the same 8 steps one at a time, bitwise, from the same
+    start and seed, and again after the bench's reset to the start; and K3
+    held against its plain version at the flagship's shape
+    (``flagship_k3``) → (launches, K3's figures there)."""
+    import contextlib
+    import io
+
+    from burn_raymarching_tpu_torch.tools import bench
+
+    names = {name: fn.__name__ for name, fn in kernel_counters().items()}
+    out = os.path.join(tmp, "bench.json")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        code = bench.main(["--out", out])
+    seconds = round(time.perf_counter() - t0, 3)
+    lines = buf.getvalue().splitlines()
+    print("\n".join(lines), flush=True)
+    with open(out) as f:
+        res = json.load(f)
+    if code not in (0, 2):
+        raise AssertionError(f"bench exited {code}")
+    if len(lines) != 1:
+        raise AssertionError(f"bench printed {len(lines)} stdout lines")
+    line = json.loads(lines[0])
+    if set(line) != {"metric", "value", "unit", "vs_baseline"} or line[
+            "metric"] != "train_step_rays_per_s_per_chip":
+        raise AssertionError(f"bench line {line}")
+    launches = {name: 0 for name in names}
+    failures = []
+    pixels, batch = res["pixels"], res["batch"]
+    for variant, rec in res["variants"].items():
+        got = rec["launches"]
+        steps = rec["steps_run"]
+        prefill = -(-pixels // batch) if variant == "warm" else 0
+        want = {name: 0 for name in names}
+        for name in BENCH_ONCE_PER_STEP[variant]:
+            want[name] = steps + (prefill if name.startswith("march")
+                                  else 0)
+        seen = {name: got.get(names[name], 0) for name in names}
+        if seen != want:
+            failures.append(f"{variant}: launches {seen}, expected {want}")
+        for name in names:
+            launches[name] += seen[name]
+        emit(f"bench_{variant}", **{k: v for k, v in rec.items()
+                                    if k != "launches"}, launches=seen)
+    large = res["large"]
+    seen = {name: large["launches"].get(names[name], 0) for name in names}
+    for name in names:
+        launches[name] += seen[name]
+    emit("bench_large", **{k: v for k, v in large.items()
+                           if k != "launches"}, launches=seen)
+    missing = [k for k in BENCH_LARGE_KERNELS if seen[k] <= 0]
+    if missing:
+        failures.append(f"flagship launched none of {missing}")
+    if not large["graphs"] or large["host_launches_per_step"] > 3.0:
+        failures.append(f"flagship: graphs {large['graphs']}, "
+                        f"{large['host_launches_per_step']} host launch "
+                        f"calls a step")
+    gaps = bench.replay_matches_steps("warm", dev)
+    emit("bench", line=line, exit_code=code, seconds=seconds,
+         card=res["card"], batch=batch, pixels=pixels,
+         captured_vs_one_at_a_time_warm=gaps, launches=launches)
+    if line["vs_baseline"] <= 1.0:
+        failures.append(f"vs_baseline {line['vs_baseline']} <= 1")
+    if any(gap != 0.0 for gap in gaps.values()):
+        failures.append(f"captured warm bench step vs one at a time: {gaps}")
+    k3 = flagship_k3(torch, dev, failures)
+    emit("kernel", name="culled_march_flagship", cull_budget=256,
+         hier=True, **k3)
+    if failures:
+        raise AssertionError("bench: " + "; ".join(failures))
+    return launches, {f"flagship_{key}": k3[key] for key in (
+        "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+        "valid_slots", "table")}
+
+
 def main() -> int:
     import torch
 
@@ -2570,12 +2726,14 @@ def main() -> int:
         launches_c5, c5_shape = phase_c5(torch, dev, tmp)
         launches_dist, union_shape = phase_distributed(torch, dev, tmp)
         launches_viewer, viewer_shape = phase_viewer(torch, dev, tmp)
-    kernels["culled_march"].update(refine_shape, **c5_shape, **union_shape)
+        launches_bench, flagship_shape = phase_bench(torch, dev, tmp)
+    kernels["culled_march"].update(refine_shape, **c5_shape, **union_shape,
+                                   **flagship_shape)
     kernels["march_shade"].update(viewer_shape)
     # ``launches``: the two training paths (phases 6 and 8);
     # ``launches_quality``: the refine and guard paths (phases 9 and 10);
-    # ``launches_c5``, ``launches_distributed`` and ``launches_viewer``:
-    # phases 11, 12 and 13.
+    # ``launches_c5``, ``launches_distributed``, ``launches_viewer`` and
+    # ``launches_bench``: phases 11, 12, 13 and 14.
     # Every path had its counts set to 0 just before it and read after it,
     # and every kernel is counted on one of the two quality paths.
     quality = {**launches_guard, **launches_refine}
@@ -2587,7 +2745,8 @@ def main() -> int:
          "replaces": SOURCES[k][1], "launches": launches[k],
          "launches_quality": quality[k], "launches_c5": launches_c5[k],
          "launches_distributed": launches_dist[k],
-         "launches_viewer": launches_viewer[k], **kernels[k]}
+         "launches_viewer": launches_viewer[k],
+         "launches_bench": launches_bench[k], **kernels[k]}
         for k in SOURCES]}), flush=True)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
