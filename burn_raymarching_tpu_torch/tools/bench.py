@@ -31,10 +31,12 @@ Three steps are timed:
              (csrc/shade.cu) shades, forward and backward. The cache is
              filled by a cold K1 march over every pixel first.
 
-``vs_baseline`` is the best step's rays/s over the plain step's. Then the
-large-scene flagship (``large_flagship``): the culled step at M = 51,200
-through tools/bench_large.py. On the CPU (``--device cpu``) only the plain
-step runs, at batch 2,048, as bench.py does off its accelerator.
+``vs_baseline`` is the best step's rays/s over the plain step's. The line
+is printed as soon as the three steps are timed; then the large-scene
+flagship (``large_flagship``: the culled step at M = 51,200 through
+tools/bench_large.py) and the guards run. On the CPU (``--device cpu``)
+only the plain step runs, at batch 2,048, as bench.py does off its
+accelerator.
 
 Guards: the step's best rays/s and the flagship's against BENCH_TORCH.json,
 a record of this port written only by ``--write-baseline`` (both entries)
@@ -462,6 +464,10 @@ def main(argv=None) -> int:
     line = {"metric": "train_step_rays_per_s_per_chip",
             "value": round(best, 1), "unit": "rays/s",
             "vs_baseline": round(best / rays["plain"], 3)}
+    result["line"] = line
+    # The line first, as bench.py prints it: a flagship that raises (a
+    # non-finite loss, out of memory) then loses only its own figures.
+    print(json.dumps(line), flush=True)
     code = 0
     if on_card:
         for fn in build.COUNTED:
@@ -481,11 +487,9 @@ def main(argv=None) -> int:
                 "large": large_entry(ms, large_rays, rec)}, where, commit)
         code = max(check_regression(best, where, RECORD, "step"),
                    check_regression(large_rays, where, RECORD, "large"))
-    result["line"] = line
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)
-    print(json.dumps(line), flush=True)
     return code
 
 

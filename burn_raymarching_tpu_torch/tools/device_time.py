@@ -44,7 +44,8 @@ def profile_calls(one, steps: int, margin_s: float = WINDOW_MARGIN_S,
     spans that the trace also places on the device) → busy device time per
     step (the union of their intervals), events per step, the five kernel
     names with the most device time, the device time of each hand-written
-    kernel (HAND_KERNELS) that ran and its events in the window, and the
+    kernel (HAND_KERNELS) that ran and its events in the window, the
+    device time of the NCCL kernels (names holding "nccl"), and the
     host's launch calls per step (LAUNCH_CALLS among the runtime and driver
     calls). The window stays open ``margin_s`` on each side of the calls:
     torch.profiler drops device events stamped before it opens
@@ -88,10 +89,12 @@ def profile_calls(one, steps: int, margin_s: float = WINDOW_MARGIN_S,
             for k in HAND_KERNELS}
     hand_events = {k: sum(1 for _, _, name in spans if k in name)
                    for k in HAND_KERNELS}
+    nccl = sum(d for name, d in by_name.items() if "nccl" in name.lower())
     return {"device_busy_ms_per_step": busy_us / 1000.0 / steps,
             "device_events_per_step": len(spans) / steps,
             "host_launches_per_step": launches / steps,
             "graph_launches_per_step": graph_launches / steps,
+            "nccl_ms_per_step": nccl / 1000.0 / steps,
             "top_kernels_ms_per_step": [[k[:60], d / 1000.0 / steps]
                                         for k, d in top],
             "hand_kernels_ms_per_step": {k: d / 1000.0 / steps

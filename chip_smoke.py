@@ -164,7 +164,15 @@ non-zero without the final result line:
                    replaying graphs with at most 3 host launch calls a
                    step; the captured warm bench step held bitwise to the
                    same 8 steps one at a time, from the same start and
-                   seed and again after the bench's reset to the start.
+                   seed and again after the bench's reset to the start;
+ 15. dryrun      — tools/dryrun_multichip (the port of __graft_entry__.py):
+                   the entry forward (16,384 rays against 128 slots),
+                   finite and held to its float64 twin; the dry run's five
+                   parts on one NCCL rank in this process (every part's
+                   steps replaying captured graphs, K3 launched on part
+                   (d)), on two gloo ranks sharing the card (1 x 2: K3 on
+                   the union table, one step at a time) and, with two or
+                   more cards, on min(cards, 4) NCCL ranks, one per card.
 K1's early exit (``early_exit=True``; no path sets it) is held at every
 table width of phase 3 against the fixed-count launch, against its plain
 version, and timed beside the fixed-count launch.
@@ -173,8 +181,9 @@ the training path (``launches``; a kernel that a CUDA-graph replay launches
 counts once per replay, train/chunk.py), on the quality path that runs it
 (``launches_quality``: phase 9 for K3 and K4, phase 10 for K1 and K2), on
 the config-5 path (``launches_c5``), on the distributed paths
-(``launches_distributed``), on the viewer's (``launches_viewer``) and on
-the bench's (``launches_bench``: its three variants and the flagship),
+(``launches_distributed``), on the viewer's (``launches_viewer``), on
+the bench's (``launches_bench``: its three variants and the flagship) and
+on the dry run's (``launches_dryrun``: phase 15's runs, all ranks),
 error, ``ms`` (the wrapper call between CUDA events),
 ``device_ms`` (the same call replayed from a CUDA graph), the plain
 version's time, ``bound_ms`` (the least time the card could take, see
@@ -426,7 +435,7 @@ def phase_device(torch) -> str:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
     clocks = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
+        ["nvidia-smi", "--id=0", "--query-gpu=clocks.max.sm,clocks.sm",
          "--format=csv,noheader,nounits"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     max_sm_mhz, sm_mhz = (float(x) for x in clocks.strip().split(","))
@@ -2703,6 +2712,229 @@ def phase_bench(torch, dev, tmp: str) -> tuple[dict, dict]:
         "valid_slots", "table")}
 
 
+# Phase 15: the entry forward's largest gap to the same forward in float64
+# (the CPU tests see 1.5e-5 at 32 x 32 rays); the dry run's parts on the two
+# gloo ranks that share the card: K3 in the sharded step and on the union
+# table.
+ENTRY_TOL_F64 = 1e-4
+GLOO_PARTS = ("kernel", "union")
+
+
+def dryrun_k3_inputs(torch, dev) -> dict:
+    """The tables K3 marches in the dry run's parts (d) and (e)
+    (tools/dryrun_multichip): the 12-sphere cloud init of the dry run's
+    trainers on the 32 x 32 rig, in tiles of 16 rays at the first step's
+    smooth_k. Of the rig's 64 tiles, the two in which the plain march
+    against every sphere hits most rays form the batch (a random batch of
+    two tiles hits none of the 0.03-radius spheres on most draws, and the
+    hold reads its t and normal errors on hit rays). Part (d): the flat
+    top-8 per tile ([2, 16] rays, K = 8). Part (e), at 1 x 2: each model
+    shard's hierarchical top-8 (cluster group 8, cluster budget 2) of its
+    half of the Morton-sorted rows, padded to the DistributedTrainer's
+    bucket of 16, joined in rank order as the union table, of which model
+    rank 0 marches its one tile ([1, 16] rays, 2 x 8 slots) → {part: (ro3,
+    rd3, cs, rs, qs, smooth_k, cfg)}."""
+    from burn_raymarching_tpu_torch.config import TrainConfig
+    from burn_raymarching_tpu_torch.models.scene import (
+        SceneParams,
+        activate,
+        pad_params,
+    )
+    from burn_raymarching_tpu_torch.ops.culling import (
+        PrimitiveClusters,
+        morton_order,
+    )
+    from burn_raymarching_tpu_torch.render.culled import (
+        culled_march_normals_xla,
+    )
+    from burn_raymarching_tpu_torch.tools import dryrun_multichip as dm
+    from burn_raymarching_tpu_torch.train.loop import Trainer
+    from burn_raymarching_tpu_torch.train.step_body import (
+        culled_tables,
+        schedule_for_step,
+    )
+
+    ds = dm.rig_dataset(dev)
+    ro_all, rd_all = ds.packed[:, :3], ds.packed[:, 3:6]
+    out = {}
+    for part, kw, model in (("kernel", dm.CFG_K, 1),
+                            ("union", dm.CFG_FULL, 2)):
+        cfg = TrainConfig(batch_size=32, **kw)
+        tr = Trainer(cfg, ds, log=lambda s: None)
+        params = tr._init_params()
+        _, k, _, _ = schedule_for_step(cfg, 0, 1)
+        tile = cfg.cull_tile
+        with torch.no_grad():
+            c, _, r, _, _ = activate(params)
+            n_tiles = ro_all.shape[0] // tile
+            t_all, _ = culled_march_normals_xla(
+                ro_all.reshape(n_tiles, tile, 3),
+                rd_all.reshape(n_tiles, tile, 3),
+                c.expand(n_tiles, -1, -1), r.reshape(1, -1).expand(
+                    n_tiles, -1), (c * c).sum(dim=1).expand(n_tiles, -1), k)
+            hits = (t_all[..., 0] < 10.0).sum(dim=1)
+            tiles = torch.sort(torch.topk(hits, 2).indices).values
+            rows = (tiles[:, None] * tile
+                    + torch.arange(tile, device=dev)).reshape(-1)
+            ro, rd = ro_all[rows], rd_all[rows]
+            if model == 1:
+                padded, mask = pad_params(params, tr._bucket(params.n))
+                c, _, r, _, _ = activate(padded)
+                _, _, cs, rs, qs = culled_tables(cfg, ro, rd, c, r, k, mask)
+            else:
+                order = torch.as_tensor(morton_order(c.cpu().numpy()),
+                                        device=dev)
+                padded, mask = pad_params(SceneParams(
+                    params.centers[order], params.colors[order],
+                    params.radii[order], params.light_dir, params.ambient),
+                    16)
+                c, _, r, _, _ = activate(padded)
+                m_local, g = 16 // model, cfg.cull_cluster_group
+                shards = []
+                for m in range(model):
+                    own = slice(m * m_local, (m + 1) * m_local)
+                    clusters = PrimitiveClusters(
+                        torch.arange(m_local, device=dev).reshape(-1, g),
+                        mask[own].bool().reshape(-1, g))
+                    shards.append(culled_tables(
+                        cfg, ro, rd, c[own], r[own], k, mask[own],
+                        clusters)[2:])
+                cs, rs, qs = (torch.cat([sh[i] for sh in shards], dim=1)[:1]
+                              for i in range(3))
+                ro, rd = ro[:tile], rd[:tile]
+        b = ro.shape[0] // tile
+        out[part] = (ro.reshape(b, tile, 3).contiguous(),
+                     rd.reshape(b, tile, 3).contiguous(), cs.contiguous(),
+                     rs.contiguous(), qs.contiguous(), k, cfg)
+    return out
+
+
+def dryrun_k3(torch, dev, failures: list) -> dict:
+    """K3 against its plain version at the dry run's shapes
+    (``dryrun_k3_inputs``), cold (the step's 40 march steps) and warm (its
+    4 warm steps from warm_backoff x the cold t), with k3_case's
+    float64-based tolerances → {part: {"cold": figures, "warm": figures}}."""
+    from burn_raymarching_tpu_torch.ops.cuda import culled_march_kernel as k3
+
+    out = {}
+    for part, (*args, k, cfg) in dryrun_k3_inputs(torch, dev).items():
+        t_cold, _ = k3.culled_march_normals(*args, k,
+                                            num_steps=cfg.render.march_steps)
+        out[part] = {
+            "cold": k3_case(torch, args, k, cfg.render.march_steps, None,
+                            f"dry run {part} cold", failures),
+            "warm": k3_case(torch, args, k, cfg.warm_steps,
+                            (t_cold * cfg.warm_backoff).contiguous(),
+                            f"dry run {part} warm", failures)}
+    return out
+
+
+def phase_dryrun(torch, dev) -> tuple[dict, dict]:
+    """tools/dryrun_multichip on the card (the port of __graft_entry__.py):
+    the entry forward (16,384 rays against 128 slots), finite and within
+    ENTRY_TOL_F64 of the same forward in float64; K3 held against its
+    plain version at the shapes of parts (d) and (e) (``dryrun_k3``); the
+    dry run on one NCCL rank in this process (every part's steps replaying
+    captured graphs, K3 launched on part (d)); its parts (d) and (e) on two
+    gloo ranks sharing the card (1 x 2: K3 in the sharded step and on the
+    union table, one step at a time); and with two or more cards all five
+    parts on min(cards, 4) NCCL ranks, one per card →
+    (the launches of the dry run's path per kernel, summed over its runs
+    and ranks (every count set to 0 before each run), K3's figures at the
+    dry run's shapes)."""
+    import types
+
+    from burn_raymarching_tpu_torch.models.scene import (
+        PARAM_KEYS,
+        scene_forward,
+    )
+    from burn_raymarching_tpu_torch.tools import dryrun_multichip as dm
+
+    failures = []
+    names = {name: fn.__name__ for name, fn in kernel_counters().items()}
+    launches = {name: 0 for name in names}
+
+    def spawned(n: int, backend: str, parts: tuple = dm.PARTS) -> tuple:
+        """A dry run of ``parts`` on n spawned ranks → (its summary, its
+        launches per kernel summed over its parts and ranks, seconds)."""
+        t = time.perf_counter()
+        s = dm.dryrun_multichip(n, "cuda", backend, parts)
+        mine = {name: sum(p["launches"].get(names[name], 0)
+                          for p in s["parts"].values()) for name in names}
+        return s, mine, round(time.perf_counter() - t, 3)
+
+    def check(label: str, n: int, graphs: bool, s: dict, mine: dict,
+              seconds: float, parts: tuple = dm.PARTS) -> None:
+        """One dry run's summary of ``parts``, checked: the JAX mesh,
+        finite losses, every part's graphs as ``graphs`` says, K3 launched
+        on (d) and (e); its launches added to ``launches``."""
+        emit(label, **s, seconds=seconds, launches=mine)
+        for name in names:
+            launches[name] += mine[name]
+        data, model = dm.mesh_shape(n)
+        if s["mesh"] != {"data": data, "model": model}:
+            failures.append(f"{label}: mesh {s['mesh']}")
+        for part, key in (("dense", "loss"), ("culled", "culled_loss")):
+            if part in parts and not math.isfinite(s[key]):
+                failures.append(f"{label}: {key} {s[key]}")
+        want = [p for p in parts if p != "union" or model > 1]
+        if list(s["parts"]) != want:
+            failures.append(f"{label}: parts {list(s['parts'])}")
+        for part, rec in s["parts"].items():
+            if rec["graphs"] != [graphs] * n:
+                failures.append(f"{label} {part}: graphs {rec['graphs']}")
+            if part in ("kernel", "union") and rec["k3_launches"] <= 0:
+                failures.append(f"{label} {part}: K3 not launched")
+
+    t0 = time.perf_counter()
+    fn, (params, ro, rd, k, mask) = dm.entry("cuda")
+    with torch.no_grad():
+        img = fn(params, ro, rd, k, mask)
+        p64 = types.SimpleNamespace(**{
+            key: getattr(params, key).detach().double() for key in PARAM_KEYS})
+        img64 = scene_forward(p64, ro.double(), rd.double(), k, mask=mask)
+    torch.cuda.synchronize()
+    gap = float((img.double() - img64).abs().max())
+    emit("dryrun_entry", shape=list(img.shape),
+         finite=bool(torch.isfinite(img).all()), max_abs_err_vs_float64=gap,
+         tol=ENTRY_TOL_F64, seconds=round(time.perf_counter() - t0, 3))
+    if tuple(img.shape) != (dm.ENTRY_SIZE ** 2, 3):
+        failures.append(f"entry forward shape {tuple(img.shape)}")
+    if not bool(torch.isfinite(img).all()):
+        failures.append("entry forward is not finite")
+    check_close(failures, "entry forward vs float64", gap, ENTRY_TOL_F64)
+
+    k3_dry = dryrun_k3(torch, dev, failures)
+    for part, cases in k3_dry.items():
+        for mode, case in cases.items():
+            emit("kernel", name=f"culled_march_dryrun_{part}_{mode}", **case)
+
+    t0 = time.perf_counter()
+    s, mine, _ = counted(torch, lambda: dm.dryrun_multichip(1, "cuda", "nccl"))
+    check("dryrun_nccl_1", 1, True, s, mine,
+          round(time.perf_counter() - t0, 3))
+    # Parts (d) and (e) alone: (a)-(c) at model 2 run on the CPU tests'
+    # gloo ranks and over NCCL below; on gloo ranks sharing the card part
+    # (c)'s plain march stages ~6,000 all-reduces through host memory.
+    check("dryrun_gloo_2", 2, False, *spawned(2, "gloo", GLOO_PARTS),
+          GLOO_PARTS)
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit("dryrun_nccl_multi", ran=False, why="one card")
+    else:
+        n = min(cards, 4)
+        check(f"dryrun_nccl_{n}", n, True, *spawned(n, "nccl"))
+    if launches["culled_march"] <= 0:
+        failures.append("K3 was not launched on the dry run's path")
+    if failures:
+        raise AssertionError("dryrun: " + "; ".join(failures))
+    return launches, {
+        f"dryrun_{part}_{mode}_{key}": case[key]
+        for part, cases in k3_dry.items() for mode, case in cases.items()
+        for key in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                    "table", "tiles", "rays_per_tile", "valid_slots")}
+
+
 def main() -> int:
     import torch
 
@@ -2727,13 +2959,15 @@ def main() -> int:
         launches_dist, union_shape = phase_distributed(torch, dev, tmp)
         launches_viewer, viewer_shape = phase_viewer(torch, dev, tmp)
         launches_bench, flagship_shape = phase_bench(torch, dev, tmp)
+    launches_dryrun, dryrun_shape = phase_dryrun(torch, dev)
     kernels["culled_march"].update(refine_shape, **c5_shape, **union_shape,
-                                   **flagship_shape)
+                                   **flagship_shape, **dryrun_shape)
     kernels["march_shade"].update(viewer_shape)
     # ``launches``: the two training paths (phases 6 and 8);
     # ``launches_quality``: the refine and guard paths (phases 9 and 10);
-    # ``launches_c5``, ``launches_distributed``, ``launches_viewer`` and
-    # ``launches_bench``: phases 11, 12, 13 and 14.
+    # ``launches_c5``, ``launches_distributed``, ``launches_viewer``,
+    # ``launches_bench`` and ``launches_dryrun``: phases 11, 12, 13, 14
+    # and 15.
     # Every path had its counts set to 0 just before it and read after it,
     # and every kernel is counted on one of the two quality paths.
     quality = {**launches_guard, **launches_refine}
@@ -2746,7 +2980,8 @@ def main() -> int:
          "launches_quality": quality[k], "launches_c5": launches_c5[k],
          "launches_distributed": launches_dist[k],
          "launches_viewer": launches_viewer[k],
-         "launches_bench": launches_bench[k], **kernels[k]}
+         "launches_bench": launches_bench[k],
+         "launches_dryrun": launches_dryrun[k], **kernels[k]}
         for k in SOURCES]}), flush=True)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

@@ -258,6 +258,39 @@ def test_cpu_writes_no_record(short_bench):
     assert not os.path.exists(bench.RECORD)
 
 
+def test_line_is_printed_before_the_flagship(capsys, short_bench,
+                                             monkeypatch):
+    """On the card path (forced here: a device that reports "cuda", the
+    variants' figures and the card's name stubbed) the JSON line is on
+    stdout before the flagship runs, as bench.py prints its line before
+    its large-scene guard: a flagship that raises (a non-finite loss, out
+    of memory) loses only its own figures. Exactly one line, with the
+    measured step's figure, and the flagship's exception still
+    propagates."""
+    from burn_raymarching_tpu_torch.tools import generate
+
+    rates = {"plain": 1.0e6, "kernel": 4.0e6, "warm": 8.0e6}
+    monkeypatch.setattr(generate, "resolve_device",
+                        lambda name: torch.device("cuda"))
+    monkeypatch.setattr(bench, "card", lambda: CARD)
+    monkeypatch.setattr(bench, "make_workload", lambda dev: (
+        None, None, {"packed": torch.zeros((4, 9))}))
+    monkeypatch.setattr(bench, "run_variant", lambda cfg, name, *a, **kw: {
+        "rays_per_s": rates[name], "wall_ms_per_step": 1.0})
+
+    def flagship(**kw):
+        raise FloatingPointError("non-finite loss at step 7")
+
+    monkeypatch.setattr(bench, "large_flagship", flagship)
+    with pytest.raises(FloatingPointError):
+        bench.main(["--out", str(short_bench / "bench.json")])
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 1
+    assert json.loads(lines[0]) == {
+        "metric": "train_step_rays_per_s_per_chip", "value": 8.0e6,
+        "unit": "rays/s", "vs_baseline": 8.0}
+
+
 CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 
 

@@ -2,7 +2,8 @@
 processes that join one gloo process group (NCCL, one card per rank, for
 the ``cuda`` tests that need two cards) through a FileStore under the
 test's tmp_path (no TCP port, so parallel pytest workers never collide),
-run one function per rank and hand its result back to the test.
+run one function per rank and hand its result back to the test. The
+launcher is the dry-run tool's (tools/dryrun_multichip.spawn).
 
 The rank functions live here, not in the test modules, so that a spawned
 rank imports only torch and the port (never JAX). Every rank uses one
@@ -13,11 +14,7 @@ a hung collective fails the test instead of stalling the suite.
 from __future__ import annotations
 
 import dataclasses
-import datetime
 import os
-import pickle
-import tempfile
-import traceback
 
 import numpy as np
 import torch
@@ -25,71 +22,28 @@ import torch
 RANK_TIMEOUT_S = 120.0
 
 
-def _rank_main(rank: int, world: int, store: str, out_dir: str,
-               backend: str, fn, args, kwargs):
-    torch.set_num_threads(1)
+def _rank_call(device, out, fn, args, kwargs):
     import torch.distributed as dist
 
-    path = os.path.join(out_dir, f"rank{rank}.pkl")
-    try:
-        if backend == "nccl":
-            torch.cuda.set_device(rank)
-        dist.init_process_group(
-            backend, init_method=f"file://{store}", world_size=world,
-            rank=rank, timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
-        result = fn(rank, world, *args, **kwargs)
-        dist.barrier()
-        dist.destroy_process_group()
-        with open(path, "wb") as f:
-            pickle.dump(("ok", result), f)
-    except BaseException:                                   # noqa: BLE001
-        with open(path, "wb") as f:
-            pickle.dump(("error", traceback.format_exc()), f)
-        raise
+    return fn(dist.get_rank(), dist.get_world_size(), *args, **kwargs)
 
 
 def run_ranks(tmp_path, world: int, fn, *args,
               timeout: float = RANK_TIMEOUT_S, backend: str = "gloo",
               **kwargs) -> list:
     """``fn(rank, world, *args, **kwargs)`` on ``world`` ranks of
-    ``backend`` (gloo; with "nccl" rank r takes card r) → the results in
-    rank order; raises with the first failing rank's traceback."""
-    import torch.multiprocessing as mp
+    ``backend`` (gloo, one CPU thread each; with "nccl" rank r takes card
+    r) → the results in rank order, through the dry-run tool's launcher
+    (tools/dryrun_multichip.spawn: a fresh FileStore directory under
+    ``tmp_path`` for every call, so a store left by another world size in
+    the same worker never hands the new ranks stale addresses; a rank that
+    fails stops the others and its traceback is raised; ``timeout`` bounds
+    every collective and the whole run)."""
+    from burn_raymarching_tpu_torch.tools.dryrun_multichip import spawn
 
-    # A fresh directory for every call: a FileStore file left by an earlier
-    # group (another world size of a cached fixture in the same worker)
-    # would hand the new ranks its stale addresses, and they hang.
-    os.makedirs(tmp_path, exist_ok=True)
-    out_dir = tempfile.mkdtemp(prefix=f"ranks_{fn.__name__}_",
-                               dir=str(tmp_path))
-    store = os.path.join(out_dir, "store")
-    ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_rank_main,
-                         args=(r, world, store, out_dir, backend, fn, args,
-                               kwargs))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(timeout)
-    hung = [r for r, p in enumerate(procs) if p.is_alive()]
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join(10)
-    results = []
-    for r in range(world):
-        path = os.path.join(out_dir, f"rank{r}.pkl")
-        if not os.path.exists(path):
-            raise RuntimeError(f"rank {r} wrote no result (hung: {hung}, "
-                               f"exit codes "
-                               f"{[p.exitcode for p in procs]})")
-        with open(path, "rb") as f:
-            status, value = pickle.load(f)
-        if status != "ok":
-            raise RuntimeError(f"rank {r} failed:\n{value}")
-        results.append(value)
-    return results
+    return spawn(world, _rank_call, fn, args, kwargs,
+                 device="cuda" if backend == "nccl" else "cpu",
+                 backend=backend, timeout=timeout, root=str(tmp_path))
 
 
 def nn(x):
