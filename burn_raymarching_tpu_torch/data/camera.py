@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from burn_raymarching_tpu_torch.utils.device import resolve_device
+
 
 def _look_at_basis(eye: np.ndarray, target: np.ndarray):
     """Camera basis (forward, right, up), computed on the host in numpy."""
@@ -25,8 +27,9 @@ def _look_at_basis(eye: np.ndarray, target: np.ndarray):
 
 
 def create_camera_rays(width: int, height: int, eye, target, fov_deg: float,
-                       device: torch.device | str = "cpu"):
+                       device: torch.device | str = "cuda"):
     """Returns (ray_org [H*W,3], ray_dir [H*W,3]) in row-major pixel order."""
+    device = resolve_device(device)
     eye = np.asarray(eye, dtype=np.float32)
     target = np.asarray(target, dtype=np.float32)
     forward, right, up = _look_at_basis(eye, target)

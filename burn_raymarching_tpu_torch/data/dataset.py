@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from burn_raymarching_tpu_torch.utils.device import resolve_device
+
 
 def compute_fg_indices(targets: np.ndarray, threshold: float = 0.05):
     """Split pixel indices by target brightness → (fg_indices padded to the
@@ -65,7 +67,8 @@ class RayDataset:
     [P, 9] (ro | rd | target) tensor, so a batch is one row gather."""
 
     def __init__(self, rays_o, rays_d, targets, fg_threshold: float = 0.05,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
+        device = resolve_device(device)
         self.fg_threshold = fg_threshold
         targets = np.asarray(targets, np.float32)
         self.packed = torch.as_tensor(np.concatenate(

@@ -18,6 +18,7 @@ from torch.nn import functional as F
 
 from burn_raymarching_tpu_torch.ops.march import march
 from burn_raymarching_tpu_torch.render.diff import render_diff
+from burn_raymarching_tpu_torch.utils.device import resolve_device
 
 PARAM_KEYS = ("centers", "colors", "radii", "light_dir", "ambient")
 
@@ -54,9 +55,10 @@ def activate(params: SceneParams):
 
 def raw_from_physical(centers, colors, radii, light_dir=(0.0, 1.0, 0.0),
                       ambient: float = 0.2,
-                      device: torch.device | str = "cpu") -> SceneParams:
+                      device: torch.device | str = "cuda") -> SceneParams:
     """Physical → raw re-encode, the inverse of :func:`activate`; colors are
     clipped away from {0, 1} so the logit stays finite."""
+    device = resolve_device(device)
     f32 = dict(dtype=torch.float32, device=device)
     colors = torch.clamp(torch.as_tensor(colors, **f32), 1e-6, 1.0 - 1e-6)
     radii = torch.as_tensor(radii, **f32)
@@ -70,8 +72,10 @@ def raw_from_physical(centers, colors, radii, light_dir=(0.0, 1.0, 0.0),
     )
 
 
-def params_from_numpy(d, device: torch.device | str = "cpu") -> SceneParams:
+def params_from_numpy(d, device: torch.device | str = "cuda"
+                      ) -> SceneParams:
     """SceneParams from a dict (or npz) with the stage-checkpoint keys."""
+    device = resolve_device(device)
     return SceneParams(*(torch.as_tensor(np.array(d[k], np.float32),
                                          device=device) for k in PARAM_KEYS))
 
@@ -116,10 +120,11 @@ def scene_forward(
 def init_scene_params_cloud(n: int, seed: int = 0, extent: float = 0.8,
                             radius: float = 0.03, ambient_logit: float = -1.4,
                             points=None, jitter: float = 0.02,
-                            device: torch.device | str = "cpu"
+                            device: torch.device | str = "cuda"
                             ) -> SceneParams:
     """Random-cloud init (uniform small spheres, or ``points`` [P,3] with
     Gaussian ``jitter``); same numpy draws as the JAX package."""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     if points is not None:
         pts = np.asarray(points, np.float32).reshape(-1, 3)
@@ -140,10 +145,11 @@ def init_scene_params_cloud(n: int, seed: int = 0, extent: float = 0.8,
 
 def init_scene_params(n: int = 7, offset: float = 0.1,
                       ambient_logit: float = -1.4,
-                      device: torch.device | str = "cpu") -> SceneParams:
+                      device: torch.device | str = "cuda") -> SceneParams:
     """6-directions-plus-center layout: the first 6 primitives at ±offset
     on each axis, the rest at the origin; color logits 0, raw radius 0,
     light [0,1,0], ambient logit -1.4."""
+    device = resolve_device(device)
     directions = torch.tensor([[1.0, 0.0, 0.0], [-1.0, 0.0, 0.0],
                                [0.0, 1.0, 0.0], [0.0, -1.0, 0.0],
                                [0.0, 0.0, 1.0], [0.0, 0.0, -1.0]])

@@ -17,6 +17,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from burn_raymarching_tpu_torch.utils.device import resolve_device
+
 # exp(-22) ≈ 2.7e-10: dropped terms are below f32 resolution of the sums.
 CULL_MARGIN = 22.0
 
@@ -152,10 +154,11 @@ def morton_order(centers) -> np.ndarray:
 
 
 def build_clusters(centers, mask=None, group: int = 64,
-                   device: torch.device | str = "cpu") -> PrimitiveClusters:
+                   device: torch.device | str = "cuda") -> PrimitiveClusters:
     """Morton-sort live primitive centers (NumPy, host side) and chunk them
     into clusters of ``group``; the last cluster is padded with invalid
     slots pointing at primitive 0."""
+    device = resolve_device(device)
     centers = np.asarray(centers)
     m = centers.shape[0]
     live = (np.ones(m, bool) if mask is None

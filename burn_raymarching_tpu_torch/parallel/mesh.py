@@ -28,6 +28,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from burn_raymarching_tpu_torch.parallel.collectives import Axis
+from burn_raymarching_tpu_torch.utils.device import resolve_device
 
 DEFAULT_TIMEOUT_S = 600.0
 
@@ -56,7 +57,7 @@ def init_distributed(device: torch.device | str = "cuda",
     of its local rank."""
     if dist.is_initialized():
         return
-    dev = torch.device(device)
+    dev = resolve_device(device)
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     if init_method is None:
         if "RANK" in os.environ and "MASTER_ADDR" in os.environ:

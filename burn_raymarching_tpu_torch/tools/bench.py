@@ -314,9 +314,9 @@ def large_flagship(steps: int = 50, reps: int = 2, device="cuda",
     call, best of ``reps``. The record also holds the same step one step
     at a time and, on the card, its device profile."""
     from burn_raymarching_tpu_torch.tools import bench_large as bl
-    from burn_raymarching_tpu_torch.tools.generate import resolve_device
+    from burn_raymarching_tpu_torch.utils.device import resolve_device
 
-    dev = resolve_device(str(device))
+    dev = resolve_device(device)
     cfg = flagship_config(steps, **overrides)
     ds = bl.make_dataset(pixels, side, dev)
     padded, mask = bl.make_params(m, dev)
@@ -429,7 +429,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     from burn_raymarching_tpu_torch.config import TrainConfig
-    from burn_raymarching_tpu_torch.tools.generate import resolve_device
+    from burn_raymarching_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(args.device)
     on_card = dev.type == "cuda"

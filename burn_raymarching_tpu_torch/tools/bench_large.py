@@ -57,7 +57,7 @@ def make_dataset(n_pixels: int, side: int, device):
     from burn_raymarching_tpu_torch.data.dataset import RayDataset
 
     ro, rd = create_camera_rays(side, side, [0.0, 0.5, -2.5], [0, 0, 0],
-                                50.0)
+                                50.0, device="cpu")
     reps = max(1, n_pixels // (side * side))
     ro, rd = ro.numpy(), rd.numpy()
     ro, rd = np.tile(ro, (reps, 1)), np.tile(rd, (reps, 1))
@@ -255,7 +255,7 @@ def main(argv=None) -> list[dict]:
     args = ap.parse_args(argv)
 
     from burn_raymarching_tpu_torch.config import LossConfig, TrainConfig
-    from burn_raymarching_tpu_torch.tools.generate import resolve_device
+    from burn_raymarching_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
     ds = make_dataset(args.pixels, args.side, device)

@@ -128,7 +128,6 @@ from burn_raymarching_tpu_torch.parallel.train_step import (
     replays_graphs,
     shard_params,
 )
-from burn_raymarching_tpu_torch.tools.generate import resolve_device
 from burn_raymarching_tpu_torch.train.chunk import ChunkRunner
 from burn_raymarching_tpu_torch.train.loop import (
     build_dataset,
@@ -137,6 +136,7 @@ from burn_raymarching_tpu_torch.train.loop import (
 )
 from burn_raymarching_tpu_torch.train.optimizer import make_optimizer
 from burn_raymarching_tpu_torch.train.step_body import lr_scale_tree
+from burn_raymarching_tpu_torch.utils.device import resolve_device
 
 # The rig of every camera here (__graft_entry__.py:32, :73, :109).
 EYE, TARGET, FOV = [0.0, 0.5, -2.5], [0.0, 0.0, 0.0], 50.0
@@ -218,7 +218,7 @@ def entry(device="cuda", size: int = ENTRY_SIZE) -> tuple[Callable, tuple]:
     march; args are init_scene_params(100) padded to 128 slots, the rays
     of a ``size`` x ``size`` camera (16,384 at the default 128), smooth_k
     32 and the slot mask, on ``device``."""
-    dev = resolve_device(str(device))
+    dev = resolve_device(device)
     padded, mask = pad_params(init_scene_params(ENTRY_LIVE, device=dev),
                               ENTRY_SLOTS)
     ro, rd = create_camera_rays(size, size, EYE, TARGET, FOV, device=dev)
@@ -344,7 +344,7 @@ def rig_dataset(device) -> RayDataset:
     """The 32 x 32 rig of parts (c)-(e) (__graft_entry__.py:109-111):
     targets clip(|rd|, 0, 1)."""
     ro, rd = (x.numpy() for x in create_camera_rays(32, 32, EYE, TARGET,
-                                                     FOV))
+                                                     FOV, device="cpu"))
     return RayDataset(ro, rd, np.clip(np.abs(rd), 0, 1), device=device)
 
 

@@ -101,20 +101,12 @@ def dango_scene():
             np.asarray([[0.2], [0.15], [0.2]], np.float32))
 
 
-def resolve_device(name: str) -> torch.device:
-    """The requested device; a CUDA request without a card raises."""
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {name} requested but CUDA is not "
-                           "available (pass --device cpu to run on the CPU)")
-    return dev
-
-
 def main(argv=None):
     from burn_raymarching_tpu_torch.data.camera import create_camera_rays
     from burn_raymarching_tpu_torch.data.image_io import save_array_as_image
     from burn_raymarching_tpu_torch.data.scene_io import save_cameras
     from burn_raymarching_tpu_torch.render.gt import render_gt
+    from burn_raymarching_tpu_torch.utils.device import resolve_device
 
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--out", default="data")

@@ -301,10 +301,11 @@ def main(argv=None) -> dict:
 
     from burn_raymarching_tpu_torch.tools import generate
     from burn_raymarching_tpu_torch.train.loop import Trainer, build_dataset
+    from burn_raymarching_tpu_torch.utils.device import resolve_device
 
     data_dir = args.data or os.path.join(args.out, "data")
     os.makedirs(args.out, exist_ok=True)
-    device = generate.resolve_device(args.device)
+    device = resolve_device(args.device)
     if not os.path.exists(os.path.join(data_dir, "cameras.json")):
         print(f"--- generating {args.views}-view {args.size}px dataset ---")
         generate.main(generate_argv(data_dir, views=args.views,

@@ -55,9 +55,9 @@ def main(argv=None) -> list[dict]:
     args = ap.parse_args(argv)
 
     from burn_raymarching_tpu_torch.data.scene_io import load_scene_json
-    from burn_raymarching_tpu_torch.tools.generate import resolve_device
     from burn_raymarching_tpu_torch.tools.viewer_offline import render_pose
     from burn_raymarching_tpu_torch.utils import profiling
+    from burn_raymarching_tpu_torch.utils.device import resolve_device
 
     resolve_device("cuda")
     scene = load_scene_json(args.scene)

@@ -217,8 +217,8 @@ def main(argv=None):
 
     args = make_parser().parse_args(argv)
     from burn_raymarching_tpu_torch.data.scene_io import export_scene_json
-    from burn_raymarching_tpu_torch.tools.generate import resolve_device
     from burn_raymarching_tpu_torch.train.loop import Trainer, build_dataset
+    from burn_raymarching_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
     cfg = build_config(args)

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from burn_raymarching_tpu_torch.ops.cuda.march_shade_kernel import march_shade
+from burn_raymarching_tpu_torch.utils.device import resolve_device
 
 # The smooth-min sharpness both models render with (the viewer shader's
 # k = 32, shader.wgsl:43-61).
@@ -71,7 +72,7 @@ def render_pose(scene, eye, target, size, model="viewer", fov=50.0,
     looking at ``target`` → [size², 3] linear RGB (numpy float32)."""
     from burn_raymarching_tpu_torch.data.camera import create_camera_rays
 
-    dev = torch.device(device)
+    dev = resolve_device(device)
     params = scene_tensors(scene, dev)
     ro, rd = create_camera_rays(size, size, eye, target, fov, device=dev)
     if model == "train":
@@ -168,7 +169,6 @@ def main(argv=None):
         save_array_as_image,
     )
     from burn_raymarching_tpu_torch.data.scene_io import load_scene_json
-    from burn_raymarching_tpu_torch.tools.generate import resolve_device
 
     dev = resolve_device(args.device)
     iio = None

@@ -192,7 +192,7 @@ def main(argv=None):
                              "raises)")
     args = parser.parse_args(argv)
 
-    from burn_raymarching_tpu_torch.tools.generate import resolve_device
+    from burn_raymarching_tpu_torch.utils.device import resolve_device
 
     state = _ViewerState(args.scene, args.size, args.model,
                          device=resolve_device(args.device))

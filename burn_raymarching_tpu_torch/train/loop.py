@@ -119,22 +119,26 @@ from burn_raymarching_tpu_torch.utils import (
     bucket_size,
     multi_view_morton_permutation,
 )
+from burn_raymarching_tpu_torch.utils.device import resolve_device
 
 
-def build_dataset(cfg: TrainConfig, device: torch.device | str = "cpu"
+def build_dataset(cfg: TrainConfig, device: torch.device | str = "cuda"
                   ) -> RayDataset:
-    """cameras.json + target images → one flat ray dataset on ``device``.
+    """cameras.json + target images → one flat ray dataset on ``device``
+    (the card unless the caller names the CPU).
 
     dataset_order="morton" stores each view's rays in Z-order so that sorted
     batch indices form compact pixel blocks, the coherence the culled step
     needs; sampling and loss semantics are unchanged."""
+    device = resolve_device(device)
     if cfg.dataset_order not in ("raster", "morton"):
         raise ValueError(f"unknown dataset_order {cfg.dataset_order!r}")
     cams = load_cameras(cfg.cameras_json)
     ro_list, rd_list, tgt_list = [], [], []
     for cam in cams:
+        # Built on the host: the Morton permutation below is NumPy.
         ro, rd = create_camera_rays(cfg.width, cfg.height, cam["origin"],
-                                    cam["target"], cam["fov"])
+                                    cam["target"], cam["fov"], device="cpu")
         ro_list.append(ro.numpy())
         rd_list.append(rd.numpy())
         tgt_list.append(load_image_as_array(cam["file"]))

@@ -172,7 +172,18 @@ non-zero without the final result line:
                    steps replaying captured graphs, K3 launched on part
                    (d)), on two gloo ranks sharing the card (1 x 2: K3 on
                    the union table, one step at a time) and, with two or
-                   more cards, on min(cards, 4) NCCL ranks, one per card.
+                   more cards, on min(cards, 4) NCCL ranks, one per card;
+ 16. defaults    — the library flow with no device named: on phase 5's
+                   dango set at config-1 width (TrainConfig's defaults,
+                   kernels on), build_dataset(cfg) must land on the card
+                   and Trainer(cfg, dataset).run() train 2 stages x 20
+                   steps across one density boundary through K1 and K2
+                   (every count set to 0 before the run and read after it)
+                   to a finite loss; raw_from_physical on phase 6's
+                   scene.json, params_from_numpy, init_scene_params,
+                   init_scene_params_cloud, create_camera_rays and
+                   build_clusters, each called without a device, must
+                   return tensors on the card.
 K1's early exit (``early_exit=True``; no path sets it) is held at every
 table width of phase 3 against the fixed-count launch, against its plain
 version, and timed beside the fixed-count launch.
@@ -183,7 +194,8 @@ counts once per replay, train/chunk.py), on the quality path that runs it
 the config-5 path (``launches_c5``), on the distributed paths
 (``launches_distributed``), on the viewer's (``launches_viewer``), on
 the bench's (``launches_bench``: its three variants and the flagship) and
-on the dry run's (``launches_dryrun``: phase 15's runs, all ranks),
+on the dry run's (``launches_dryrun``: phase 15's runs, all ranks), on
+the library defaults' (``launches_defaults``: phase 16's training run),
 error, ``ms`` (the wrapper call between CUDA events),
 ``device_ms`` (the same call replayed from a CUDA graph), the plain
 version's time, ``bound_ms`` (the least time the card could take, see
@@ -2935,6 +2947,71 @@ def phase_dryrun(torch, dev) -> tuple[dict, dict]:
                     "table", "tiles", "rays_per_tile", "valid_slots")}
 
 
+DEFAULTS_STEPS = 20
+
+
+def phase_defaults(torch, tmp: str) -> dict:
+    """The port's library flow with no device named, on the dango set and
+    the scene that phases 5 and 6 left in ``tmp``: the dataset, the
+    training run and the scene, camera and cluster helpers must all land
+    on the card → every kernel's launches on the training run."""
+    from burn_raymarching_tpu_torch.config import TrainConfig
+    from burn_raymarching_tpu_torch.data.camera import create_camera_rays
+    from burn_raymarching_tpu_torch.data.scene_io import load_scene_json
+    from burn_raymarching_tpu_torch.models.scene import (
+        init_scene_params,
+        init_scene_params_cloud,
+        params_from_numpy,
+        params_to_numpy,
+        raw_from_physical,
+    )
+    from burn_raymarching_tpu_torch.ops.culling import build_clusters
+    from burn_raymarching_tpu_torch.train.loop import Trainer, build_dataset
+
+    out = os.path.join(tmp, "defaults")
+    cfg = TrainConfig(stages=TRAIN_STAGES, steps_per_stage=DEFAULTS_STEPS,
+                      cameras_json=os.path.join(tmp, "data", "cameras.json"),
+                      steps_dir=os.path.join(out, "steps"),
+                      scene_json=os.path.join(out, "scene.json"),
+                      checkpoint_dir="")
+    ds = build_dataset(cfg)
+    trainer = Trainer(cfg, ds, log=lambda s: None)
+    (padded, mask), launches, seconds = counted(torch, trainer.run)
+    final_loss = trainer.loss_history[-1]
+
+    scene = load_scene_json(os.path.join(tmp, "scene.json"))
+    raw = raw_from_physical(
+        scene["centers"], scene["colors"], scene["radii"] + 0.01,
+        light_dir=scene["light_dir"],
+        ambient=float(scene["ambient_intensity"][0]))
+    on = {"build_dataset": ds.device,
+          "Trainer.run": padded.centers.device,
+          "raw_from_physical": raw.centers.device,
+          "params_from_numpy":
+              params_from_numpy(params_to_numpy(raw)).centers.device,
+          "init_scene_params": init_scene_params().centers.device,
+          "init_scene_params_cloud":
+              init_scene_params_cloud(cfg.init_n, seed=cfg.seed
+                                      ).centers.device,
+          "create_camera_rays": create_camera_rays(
+              cfg.width, cfg.height, [0.0, 0.5, -2.5], [0.0, 0.0, 0.0],
+              50.0)[1].device,
+          "build_clusters":
+              build_clusters(scene["centers"]).member_idx.device}
+    emit("defaults", stages=cfg.stages, steps_per_stage=cfg.steps_per_stage,
+         batch=cfg.batch_size, slots=int(mask.shape[0]),
+         final_n=int(mask.sum().item()), seconds=seconds,
+         final_loss=final_loss, device=str(ds.device),
+         on={name: str(dev) for name, dev in on.items()}, launches=launches)
+    off = sorted(name for name, dev in on.items() if dev.type != "cuda")
+    if off:
+        raise AssertionError(f"not on the card without a device: {off}")
+    require_launches(launches, list(c1_counters()), "library defaults")
+    if not math.isfinite(final_loss):
+        raise AssertionError(f"library defaults: final loss {final_loss}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2959,15 +3036,16 @@ def main() -> int:
         launches_dist, union_shape = phase_distributed(torch, dev, tmp)
         launches_viewer, viewer_shape = phase_viewer(torch, dev, tmp)
         launches_bench, flagship_shape = phase_bench(torch, dev, tmp)
-    launches_dryrun, dryrun_shape = phase_dryrun(torch, dev)
+        launches_dryrun, dryrun_shape = phase_dryrun(torch, dev)
+        launches_defaults = phase_defaults(torch, tmp)
     kernels["culled_march"].update(refine_shape, **c5_shape, **union_shape,
                                    **flagship_shape, **dryrun_shape)
     kernels["march_shade"].update(viewer_shape)
     # ``launches``: the two training paths (phases 6 and 8);
     # ``launches_quality``: the refine and guard paths (phases 9 and 10);
     # ``launches_c5``, ``launches_distributed``, ``launches_viewer``,
-    # ``launches_bench`` and ``launches_dryrun``: phases 11, 12, 13, 14
-    # and 15.
+    # ``launches_bench``, ``launches_dryrun`` and ``launches_defaults``:
+    # phases 11, 12, 13, 14, 15 and 16.
     # Every path had its counts set to 0 just before it and read after it,
     # and every kernel is counted on one of the two quality paths.
     quality = {**launches_guard, **launches_refine}
@@ -2981,7 +3059,8 @@ def main() -> int:
          "launches_distributed": launches_dist[k],
          "launches_viewer": launches_viewer[k],
          "launches_bench": launches_bench[k],
-         "launches_dryrun": launches_dryrun[k], **kernels[k]}
+         "launches_dryrun": launches_dryrun[k],
+         "launches_defaults": launches_defaults[k], **kernels[k]}
         for k in SOURCES]}), flush=True)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

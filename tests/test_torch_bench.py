@@ -121,7 +121,7 @@ def _port_steps(inputs, variant: str, dtype=torch.float32):
     cfg = TrainConfig(batch_size=BATCH, scan_unroll=1)
     step = bench.make_scan_step(cfg, None if variant == "plain"
                                 else march_shade, warm=variant == "warm")
-    padded = params_from_numpy(inputs["raw"]).to(dtype)
+    padded = params_from_numpy(inputs["raw"], device="cpu").to(dtype)
     ds = {"packed": torch.as_tensor(inputs["packed"]).to(dtype),
           "fg_idx": torch.as_tensor(inputs["fg"]), "n_fg": N_FG}
     t_cache = (torch.as_tensor(inputs["t_cache"]).to(dtype)
@@ -157,7 +157,7 @@ def test_warm_t_cache_matches_bench_py(inputs):
     """The prefill (a cold 40-step K1 march over every pixel, batch-sized
     chunks) against bench.py's in interpret mode: missed rays end at the
     same cap, hit rays within the float64 yardstick."""
-    padded = params_from_numpy(inputs["raw"])
+    padded = params_from_numpy(inputs["raw"], device="cpu")
     mask = torch.as_tensor(inputs["mask"])
     packed = torch.as_tensor(inputs["packed"])
     got = nn(bench.warm_t_cache(packed, padded, mask, BATCH))
@@ -267,10 +267,10 @@ def test_line_is_printed_before_the_flagship(capsys, short_bench,
     of memory) loses only its own figures. Exactly one line, with the
     measured step's figure, and the flagship's exception still
     propagates."""
-    from burn_raymarching_tpu_torch.tools import generate
+    from burn_raymarching_tpu_torch.utils import device
 
     rates = {"plain": 1.0e6, "kernel": 4.0e6, "warm": 8.0e6}
-    monkeypatch.setattr(generate, "resolve_device",
+    monkeypatch.setattr(device, "resolve_device",
                         lambda name: torch.device("cuda"))
     monkeypatch.setattr(bench, "card", lambda: CARD)
     monkeypatch.setattr(bench, "make_workload", lambda dev: (

@@ -58,7 +58,7 @@ def _config(cameras, *flags):
 
 def _scene():
     """The reference init with spread centers and varied colours."""
-    p = init_scene_params(7)
+    p = init_scene_params(7, device="cpu")
     rng = np.random.default_rng(3)
     with torch.no_grad():
         p.centers.mul_(2.5)
@@ -71,7 +71,8 @@ def _scene():
 def _gates(cfg):
     """(the port's best-of gate, the JAX CLI's best-of call, the JAX
     evaluator under the full final render config) on one scene."""
-    trainer = Trainer(cfg, build_dataset(cfg), log=lambda s: None)
+    trainer = Trainer(cfg, build_dataset(cfg, device="cpu"),
+                      log=lambda s: None)
     padded, mask = _scene()
     port = trainer.views_psnr(padded, mask)
     cams = load_cameras(cfg.cameras_json)

@@ -51,7 +51,8 @@ def capture(tmp_path_factory):
         rig.append(([2.5 * math.cos(a), 0.5, 2.5 * math.sin(a)],
                     [0.0, 0.0, 0.0]))
     for i, (origin, target) in enumerate(rig):
-        ro, rd = create_camera_rays(SIZE, SIZE, origin, target, FOV)
+        ro, rd = create_camera_rays(SIZE, SIZE, origin, target, FOV,
+                                    device="cpu")
         img = render_gt(ro, rd, centers, colors, radii)
         save_array_as_image(img.numpy(), SIZE, SIZE,
                             str(img_dir / f"f{i:03d}.png"))

@@ -72,7 +72,7 @@ SCHEDULES = {
 
 def _rays(size: int = 32):
     ro, rd = create_camera_rays(size, size, [0.0, 0.5, -2.5], [0, 0, 0],
-                                50.0)
+                                50.0, device="cpu")
     return ro.numpy(), rd.numpy(), np.clip(np.abs(rd.numpy()), 0, 1)
 
 
@@ -88,7 +88,7 @@ def test_chunk_resolution_matches_jax(steps, spc, want):
     ro, rd, tgt = _rays()
     kw = dict(batch_size=64, use_pallas=False, checkpoint_dir=None,
               steps_per_stage=steps, steps_per_call=spc)
-    got = Trainer(TrainConfig(**kw), RayDataset(ro, rd, tgt),
+    got = Trainer(TrainConfig(**kw), RayDataset(ro, rd, tgt, device="cpu"),
                   log=lambda s: None)._chunk
     jax_chunk = JTrainer(JTrainConfig(**kw), JRayDataset(ro, rd, tgt),
                          log=lambda s: None)._chunk
@@ -125,7 +125,7 @@ def test_distributed_trainer_steps_one_at_a_time():
                           _axes_of("gloo", "gloo")) is False
     ro, rd, tgt = _rays(8)
     tr = Trainer(TrainConfig(batch_size=16, use_pallas=False),
-                 RayDataset(ro, rd, tgt), log=lambda s: None)
+                 RayDataset(ro, rd, tgt, device="cpu"), log=lambda s: None)
     assert tr._replays_graphs() is False
 
 
@@ -251,7 +251,7 @@ def test_tensor_lr_adam_matches_optax(mode):
     raw = random_raw_params(7, 5)
     rng = np.random.default_rng(8)
     tx = j_opt(JTrainConfig(weight_decay_mode=mode, weight_decay=1e-2))
-    pt = params_from_numpy(raw)
+    pt = params_from_numpy(raw, device="cpu")
     opt = make_optimizer(cfg, pt)
     assert all(torch.is_tensor(g["lr"]) for g in opt.param_groups)
     assert all(g["fused"] for g in opt.param_groups)
@@ -281,7 +281,8 @@ def test_set_group_lrs_writes_in_place():
     """A captured step reads the groups' rate tensors: set_group_lrs never
     rebinds them."""
     cfg = TrainConfig()
-    opt = make_optimizer(cfg, params_from_numpy(random_raw_params(1, 3)))
+    opt = make_optimizer(cfg, params_from_numpy(random_raw_params(1, 3),
+                                                device="cpu"))
     before = [g["lr"] for g in opt.param_groups]
     set_group_lrs(opt, torch.tensor(0.03), {k: 2.0 for k in PARAM_KEYS})
     set_group_lrs(opt, 0.02, {k: 0.5 for k in PARAM_KEYS})
@@ -308,7 +309,7 @@ def _cadence_trainer(tmp_path, **kw):
 
     ro, rd, tgt = _rays()
     perm = multi_view_morton_permutation(32, 32, 1)
-    tr = Trainer(cfg, RayDataset(ro[perm], rd[perm], tgt[perm]),
+    tr = Trainer(cfg, RayDataset(ro[perm], rd[perm], tgt[perm], device="cpu"),
                  log=lambda s: None)
     seen = []
     base = tr._step_for_stage
@@ -386,7 +387,8 @@ def _capture(fn):
 
 def _k1_case(dev, n=2048, m=16, seed=0):
     rng = np.random.default_rng(seed)
-    ro, rd = create_camera_rays(64, 32, [0.0, 0.3, -2.0], [0, 0, 0], 50.0)
+    ro, rd = create_camera_rays(64, 32, [0.0, 0.3, -2.0], [0, 0, 0], 50.0,
+                                device="cpu")
     c = torch.as_tensor(rng.normal(0, 0.3, (m, 3)), dtype=torch.float32)
     r = torch.as_tensor(0.1 + 0.1 * rng.random((m, 1)), dtype=torch.float32)
     mask = torch.arange(m) < m - 3

@@ -251,7 +251,8 @@ def test_render_diff_culled_with_kernel_wrapper_matches_jax(scene, cot):
 def test_render_diff_culled_hierarchical_matches_jax(scene, cot):
     c, mask = scene["centers"], scene["mask"]
     _compare(_torch_value_and_grads(
-        scene, cot, clusters=tc.build_clusters(c, mask=mask, group=4),
+        scene, cot,
+        clusters=tc.build_clusters(c, mask=mask, group=4, device="cpu"),
         cluster_budget=2),
         _jax_value_and_grads(
             scene, cot, clusters=jc.build_clusters(c, mask=mask, group=4),

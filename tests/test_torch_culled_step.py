@@ -81,7 +81,7 @@ def test_culled_steps_match_jax(knot, monkeypatch, hier, far_field):
                             ._init_params(), 1024)
     raw = {k: nn(getattr(pt, k)) for k in PARAM_KEYS}
     mask = nn(mask_t)
-    cl_t = build_clusters(raw["centers"], mask=mask, group=8)
+    cl_t = build_clusters(raw["centers"], mask=mask, group=8, device="cpu")
     assert cl_t.member_idx.shape[0] > cfg.cull_cluster_budget
 
     calls = iter(tids)

@@ -111,7 +111,7 @@ def test_overflowing_selection_breaks_ties_like_jax(scene):
 def test_build_clusters_matches_jax_exactly(scene, masked):
     c, mask = scene[2], (scene[5] if masked else None)
     cl_j = jc.build_clusters(c, mask=mask, group=8)
-    cl_t = tc.build_clusters(c, mask=mask, group=8)
+    cl_t = tc.build_clusters(c, mask=mask, group=8, device="cpu")
     np.testing.assert_array_equal(nn(cl_t.member_idx),
                                   np.asarray(cl_j.member_idx))
     np.testing.assert_array_equal(nn(cl_t.member_valid),
@@ -126,7 +126,7 @@ def test_morton_order_matches_jax(scene):
 def test_cluster_bounds_match_jax(scene):
     _, _, c, r, _, mask = scene
     cl_j = jc.build_clusters(c, mask=mask, group=8)
-    cl_t = tc.build_clusters(c, mask=mask, group=8)
+    cl_t = tc.build_clusters(c, mask=mask, group=8, device="cpu")
     want = jc.cluster_bounds(cl_j, jnp.asarray(c), jnp.asarray(r),
                              mask=jnp.asarray(mask))
     got = tc.cluster_bounds(cl_t, tt(c), tt(r), mask=tt(mask))
@@ -140,7 +140,7 @@ def test_hier_selection_matches_jax_as_sets(scene, cluster_budget):
     _, _, c, r, _, mask = scene
     cj, ct = _cones(scene)
     cl_j = jc.build_clusters(c, mask=mask, group=8)
-    cl_t = tc.build_clusters(c, mask=mask, group=8)
+    cl_t = tc.build_clusters(c, mask=mask, group=8, device="cpu")
     idx_j, val_j = jc.select_tile_primitives_hier(
         cj, jnp.asarray(c), jnp.asarray(r), K, 16, cl_j, cluster_budget,
         mask=jnp.asarray(mask))

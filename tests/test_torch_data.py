@@ -105,8 +105,8 @@ def test_scene_json_matches_jax_export(tmp_path):
     raw = random_raw_params(4, 6)
     mask = np.arange(6) < 4
     want = j_export(jax_params(raw), str(tmp_path / "j.json"), mask=mask)
-    got = export_scene_json(params_from_numpy(raw), str(tmp_path / "t.json"),
-                            mask=mask)
+    got = export_scene_json(params_from_numpy(raw, device="cpu"),
+                            str(tmp_path / "t.json"), mask=mask)
     with open(tmp_path / "t.json") as f:
         on_disk = json.load(f)
     assert set(got) == set(want) == set(on_disk)
@@ -185,7 +185,7 @@ def test_dataset_packs_rows_on_device():
     rng = np.random.default_rng(7)
     ro, rd = rng.normal(size=(50, 3)), rng.normal(size=(50, 3))
     tgt = rng.uniform(0, 0.1, (50, 3))
-    ds = RayDataset(ro, rd, tgt, fg_threshold=0.15)
+    ds = RayDataset(ro, rd, tgt, fg_threshold=0.15, device="cpu")
     assert ds.packed.shape == (50, 9) and ds.packed.dtype == torch.float32
     gen = torch.Generator().manual_seed(1)
     o, d, t = ds.sample_batch(gen, 16, 0.5)

@@ -32,7 +32,8 @@ FULL_FEATURES = dict(
 def tiny_dataset():
     """The JAX test's 32 × 32 rig: rays from [0, 0.5, -2.5], targets
     clip(|rd|, 0, 1)."""
-    ro, rd = create_camera_rays(32, 32, [0.0, 0.5, -2.5], [0, 0, 0], 50.0)
+    ro, rd = create_camera_rays(32, 32, [0.0, 0.5, -2.5], [0, 0, 0], 50.0,
+                                device="cpu")
     return (ro.numpy(), rd.numpy(), np.clip(np.abs(rd.numpy()), 0, 1))
 
 
@@ -100,7 +101,8 @@ def test_distributed_union_march_pads_the_prefill_chunk(tmp_path):
     to two, so that the union-table march splits it over the model ranks
     (an odd tile count is an error there, not a switch to the plain
     march). A batch of 3 tiles is refused when the trainer is built."""
-    ro, rd = create_camera_rays(20, 20, [0.0, 0.5, -2.5], [0, 0, 0], 50.0)
+    ro, rd = create_camera_rays(20, 20, [0.0, 0.5, -2.5], [0, 0, 0], 50.0,
+                                device="cpu")
     arrays = (ro.numpy(), rd.numpy(), np.clip(np.abs(rd.numpy()), 0, 1))
     cfg = dict(FULL_FEATURES, batch_size=64, stages=1, steps_per_stage=2)
     res = torch_dist.run_ranks(

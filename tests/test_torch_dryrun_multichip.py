@@ -87,7 +87,8 @@ def test_entry_forward_matches_graft_entry(graft, weights):
     else:
         raw = pad_raw(random_raw_params(11, dm.ENTRY_LIVE),
                       dm.ENTRY_SLOTS - dm.ENTRY_LIVE)
-        params, j_params = params_from_numpy(raw), jax_params(raw)
+        params = params_from_numpy(raw, device="cpu")
+        j_params = jax_params(raw)
     # The reduced camera is the JAX rig's at 32 x 32 (within one ulp).
     jro, jrd = j_rays(SIZE, SIZE, dm.EYE, dm.TARGET, dm.FOV)
     np.testing.assert_allclose(ro.numpy(), np.asarray(jro), atol=1e-6)

@@ -183,7 +183,8 @@ def _dango_cfg(cameras, tmp_path, **kw):
 
 def test_guarded_run_logs_its_metrics(tiny_dango, tmp_path):
     cfg = _dango_cfg(tiny_dango, tmp_path)
-    trainer = Trainer(cfg, build_dataset(cfg), log=lambda s: None)
+    trainer = Trainer(cfg, build_dataset(cfg, device="cpu"),
+                      log=lambda s: None)
     padded, mask = trainer.run()
     rows = [r for r in trainer.metrics.read() if "guard_attempt" in r]
     assert [r["stage"] for r in rows if r["guard_attempt"] == 0] == [0, 1]
@@ -204,7 +205,8 @@ def test_guarded_run_logs_its_metrics(tiny_dango, tmp_path):
 
 def test_guard_views_subsample(tiny_dango, tmp_path):
     cfg = _dango_cfg(tiny_dango, tmp_path, stage_guard_views=3)
-    trainer = Trainer(cfg, build_dataset(cfg), log=lambda s: None)
+    trainer = Trainer(cfg, build_dataset(cfg, device="cpu"),
+                      log=lambda s: None)
     padded, mask = tscene.pad_params(trainer._init_params(), 8)
     value = trainer._guard_psnr(padded, mask)
     cams, tgts = trainer._guard_eval
@@ -219,7 +221,8 @@ def test_unguarded_run_is_unchanged_by_the_guard_code(tiny_dango, tmp_path):
     counters stay 0."""
     cfg = dataclasses.replace(_dango_cfg(tiny_dango, tmp_path),
                               stage_guard=False)
-    trainer = Trainer(cfg, build_dataset(cfg), log=lambda s: None)
+    trainer = Trainer(cfg, build_dataset(cfg, device="cpu"),
+                      log=lambda s: None)
     trainer.run()
     assert trainer._guard_eval is None
     assert trainer.guard_retry_count == trainer.guard_boundary_redo_count == 0

@@ -22,11 +22,13 @@ names = []
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
     names.append(m.name)
+assert "burn_raymarching_tpu_torch.utils.device" in names
 from burn_raymarching_tpu_torch.data.camera import create_camera_rays
 from burn_raymarching_tpu_torch.models.scene import (
     init_scene_params, pad_params, scene_forward)
-ro, rd = create_camera_rays(4, 4, [0.0, 0.5, -2.5], [0, 0, 0], 50.0)
-padded, mask = pad_params(init_scene_params(7), 8)
+ro, rd = create_camera_rays(4, 4, [0.0, 0.5, -2.5], [0, 0, 0], 50.0,
+                            device="cpu")
+padded, mask = pad_params(init_scene_params(7, device="cpu"), 8)
 out = scene_forward(padded, ro, rd, 18.5, mask=mask)
 assert out.shape == (16, 3) and bool(torch.isfinite(out).all())
 import chip_smoke                  # module level only; main() needs a card

@@ -48,7 +48,7 @@ def test_compute_loss_value_and_gradients(pad, fringe):
     val_j, (gp_j, go_j) = jax.value_and_grad(jl, argnums=(0, 1))(
         jax_params(raw), jnp.asarray(out))
 
-    p = params_from_numpy(raw)
+    p = params_from_numpy(raw, device="cpu")
     o = tt(out).requires_grad_(True)
     val_t = compute_loss(p, o, tt(tgt), progress,
                          mask=None if mask is None else tt(mask), cfg=cfg)
@@ -83,7 +83,7 @@ def test_adam_trajectory_matches_optax(mode):
     tx = j_opt(cfg)
     pj = jax_params(raw)
     state = tx.init(pj)
-    pt = params_from_numpy(raw)
+    pt = params_from_numpy(raw, device="cpu")
     opt = make_optimizer(cfg, pt)
     for g, lr in zip(grads, lrs):
         upd, state = tx.update(jax_params(g), state, pj)
@@ -105,4 +105,5 @@ def test_adam_trajectory_matches_optax(mode):
 def test_unknown_weight_decay_mode_raises():
     cfg = dataclasses.replace(TrainConfig(), weight_decay_mode="bogus")
     with pytest.raises(ValueError):
-        make_optimizer(cfg, params_from_numpy(random_raw_params(0, 2)))
+        make_optimizer(cfg, params_from_numpy(random_raw_params(0, 2),
+                                              device="cpu"))

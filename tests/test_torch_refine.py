@@ -107,7 +107,7 @@ def test_acceptance_loss_matches_jax(knot, case):
     (batch, _), (batch_j, _) = _batches(knot)
     want = float(jr._make_loss_on(cfg, jnp.asarray(mask), None, 64, fringe)(
         jax_params(raw), *batch_j))
-    params = params_from_numpy(raw)
+    params = params_from_numpy(raw, device="cpu")
     got = {s: float(tr._make_loss_on(cfg, tt(mask), jax_culled_march, 64,
                                      fringe, tile_slice=s)(params, *batch))
            for s in (1, 3, 64)}
@@ -128,7 +128,7 @@ def test_acceptance_loss_uses_the_capped_budget(knot):
     (batch, _), (batch_j, _) = _batches(knot)
     want = float(jr._make_loss_on(cfg, jnp.asarray(mask), None, 4, 1.0)(
         jax_params(raw), *batch_j))
-    params = params_from_numpy(raw)
+    params = params_from_numpy(raw, device="cpu")
     got = float(tr._make_loss_on(cfg, tt(mask), jax_culled_march, 4, 1.0)(
         params, *batch))
     full = float(tr._make_loss_on(cfg, tt(mask), jax_culled_march, 64, 1.0)(
@@ -226,7 +226,7 @@ def test_geometry_refine_chain_matches_jax(knot, case):
         select_probs=None if bias is None else jnp.asarray(bias),
         log=logs_j.append, **common)
     got, stats_t = tr.geometry_refine(
-        params_from_numpy(raw), tt(mask), batches, cfg,
+        params_from_numpy(raw, device="cpu"), tt(mask), batches, cfg,
         kern=jax_culled_march, select_probs=bias,
         draws=jax_refine_draws(key, 128, 36), log=logs_t.append, **common)
     assert _phase_counts(logs_t) == _phase_counts(logs_j)
@@ -259,7 +259,7 @@ def test_light_refine_chain_matches_jax(knot):
         jax_params(raw), jnp.asarray(mask), batches_j, cfg, key=key,
         log=logs_j.append, **common)
     got, stats_t = tr.light_refine(
-        params_from_numpy(raw), tt(mask), batches, cfg,
+        params_from_numpy(raw, device="cpu"), tt(mask), batches, cfg,
         kern=jax_culled_march,
         draws=jax_refine_draws(key, 128, 2, light=True),
         log=logs_t.append, **common)
@@ -286,9 +286,9 @@ def test_refine_with_its_own_generator_descends(knot):
     def run():
         gen = torch.Generator().manual_seed(11)
         return tr.geometry_refine(
-            params_from_numpy(raw), tt(mask), batches, cfg, proposals=8,
-            phases=2, frac=0.2, sigma_c=0.5, chunk=4, generator=gen,
-            log=lambda s: None)
+            params_from_numpy(raw, device="cpu"), tt(mask), batches, cfg,
+            proposals=8, phases=2, frac=0.2, sigma_c=0.5, chunk=4,
+            generator=gen, log=lambda s: None)
 
     (a, stats_a), (b, stats_b) = run(), run()
     assert stats_a == stats_b and stats_a.proposals == 16

@@ -39,7 +39,8 @@ GROUPS = ("centers", "colors", "radii", "light_dir", "ambient")
 ])
 def test_camera_rays_match_jax(w, h, eye, fov):
     ro_j, rd_j = j_rays(w, h, eye, [0.0, 0.0, 0.0], fov)
-    ro_t, rd_t = create_camera_rays(w, h, eye, [0.0, 0.0, 0.0], fov)
+    ro_t, rd_t = create_camera_rays(w, h, eye, [0.0, 0.0, 0.0], fov,
+                                    device="cpu")
     np.testing.assert_array_equal(nn(ro_t), np.asarray(ro_j))
     np.testing.assert_allclose(nn(rd_t), np.asarray(rd_j), rtol=1e-6,
                                atol=1e-7)
@@ -92,7 +93,7 @@ def test_render_diff_values_and_gradients_match_jax(pad):
 
     (_, out_j), g_j = jax.value_and_grad(jloss, has_aux=True)(
         jax_params(raw))
-    p = params_from_numpy(raw)
+    p = params_from_numpy(raw, device="cpu")
     out_t = scene_forward(p, tt(ro), tt(rd), 24.0,
                           mask=None if mask is None else tt(mask))
     (out_t * tt(cot)).sum().backward()
@@ -115,8 +116,9 @@ def test_gradient_topology_one_reattached_eval():
     from burn_raymarching_tpu_torch.render.diff import render_diff
 
     raw = random_raw_params(12, 4)
-    p = params_from_numpy(raw)
-    ro, rd = create_camera_rays(8, 8, [0.0, 0.3, -1.5], [0, 0, 0], 50.0)
+    p = params_from_numpy(raw, device="cpu")
+    ro, rd = create_camera_rays(8, 8, [0.0, 0.3, -1.5], [0, 0, 0], 50.0,
+                                device="cpu")
     from burn_raymarching_tpu_torch.models.scene import activate
 
     def grads(march_fn):

@@ -122,7 +122,8 @@ def test_static_tables_match_jax():
         jnp.asarray(centers), j_clusters(centers, mask=mask, group=group),
         jnp.asarray(mask))
     st_t = tl.build_repulsion_static(
-        tt(centers), build_clusters(centers, mask=mask, group=group),
+        tt(centers),
+        build_clusters(centers, mask=mask, group=group, device="cpu"),
         tt(mask))
     for name in st_j._fields:
         np.testing.assert_array_equal(nn(getattr(st_t, name)),
@@ -149,9 +150,9 @@ def test_compute_loss_routes_cluster_repulsion_like_jax(far_field):
         p, jnp.asarray(out), jnp.asarray(tgt), jnp.float32(0.3),
         mask=jnp.asarray(mask), cfg=cfg, repulsion_clusters=cl_j))(
             jax_params(raw))
-    cl_t = build_clusters(raw["centers"], mask=mask, group=8)
+    cl_t = build_clusters(raw["centers"], mask=mask, group=8, device="cpu")
     for fn in (None, k4.cluster_repulsion_fused):
-        p = params_from_numpy(raw)
+        p = params_from_numpy(raw, device="cpu")
         loss = tl.compute_loss(p, tt(out), tt(tgt), 0.3, mask=tt(mask),
                                cfg=cfg, repulsion_clusters=cl_t,
                                repulsion_fn=fn)

@@ -91,8 +91,8 @@ def test_scores_match_jax_on_the_soft_forward(knot):
     cfg = dataclasses.replace(cfg, render=RenderConfig())
     raw, mask = knot_params(cfg, raw_radius=-1.5)
     want = j_scores(jax_params(raw), jnp.asarray(mask), ds_j, cfg, 32.0)
-    got = primitive_residual_scores(params_from_numpy(raw), tt(mask), ds,
-                                    cfg, 32.0)
+    got = primitive_residual_scores(params_from_numpy(raw, device="cpu"),
+                                    tt(mask), ds, cfg, 32.0)
     assert got.shape == want.shape == (128,) and got.dtype == np.float32
     np.testing.assert_allclose(got, want, atol=1e-4 * want.max())
     np.testing.assert_array_equal(np.argsort(-got)[:8],
@@ -109,8 +109,8 @@ def test_scores_match_jax(knot, render):
     ref = _scores_float64(raw, mask, ds, cfg, 128.0)
     gap_jax = np.abs(want - ref).max()
     for kern in (None, jax_culled_march):
-        got = primitive_residual_scores(params_from_numpy(raw), tt(mask), ds,
-                                        cfg, 128.0, kern=kern)
+        got = primitive_residual_scores(params_from_numpy(raw, device="cpu"),
+                                        tt(mask), ds, cfg, 128.0, kern=kern)
         np.testing.assert_allclose(got, want, atol=2e-3 * want.max())
         np.testing.assert_array_equal(np.argsort(-got)[:8],
                                       np.argsort(-want)[:8])
@@ -121,10 +121,10 @@ def test_scores_match_jax(knot, render):
 def test_scores_are_bitwise_repeatable(knot):
     cfg, _, ds, _ = knot
     raw, mask = knot_params(cfg, seed=3)
-    first = primitive_residual_scores(params_from_numpy(raw), tt(mask), ds,
-                                      cfg, 128.0)
-    second = primitive_residual_scores(params_from_numpy(raw), tt(mask), ds,
-                                       cfg, 128.0)
+    first = primitive_residual_scores(params_from_numpy(raw, device="cpu"),
+                                      tt(mask), ds, cfg, 128.0)
+    second = primitive_residual_scores(params_from_numpy(raw, device="cpu"),
+                                       tt(mask), ds, cfg, 128.0)
     assert first.tobytes() == second.tobytes()
 
 
@@ -135,11 +135,11 @@ def test_scores_subsample_stride_matches_jax(knot):
     raw, mask = knot_params(cfg, seed=1)
     want = j_scores(jax_params(raw), jnp.asarray(mask), ds_j, cfg, 128.0,
                     max_pixels=512)
-    got = primitive_residual_scores(params_from_numpy(raw), tt(mask), ds,
-                                    cfg, 128.0, max_pixels=512,
+    got = primitive_residual_scores(params_from_numpy(raw, device="cpu"),
+                                    tt(mask), ds, cfg, 128.0, max_pixels=512,
                                     kern=jax_culled_march)
-    full = primitive_residual_scores(params_from_numpy(raw), tt(mask), ds,
-                                     cfg, 128.0)
+    full = primitive_residual_scores(params_from_numpy(raw, device="cpu"),
+                                     tt(mask), ds, cfg, 128.0)
     np.testing.assert_allclose(got, want, atol=2e-3 * want.max())
     assert got.sum() < 0.5 * full.sum()
 
@@ -154,8 +154,8 @@ def test_scoring_errors_match_jax(knot, overrides, match):
     with pytest.raises(ValueError, match=match) as err_j:
         j_scores(jax_params(raw), jnp.asarray(mask), ds_j, bad, 128.0)
     with pytest.raises(ValueError, match=match) as err_t:
-        primitive_residual_scores(params_from_numpy(raw), tt(mask), ds, bad,
-                                  128.0)
+        primitive_residual_scores(params_from_numpy(raw, device="cpu"),
+                                  tt(mask), ds, bad, 128.0)
     assert str(err_t.value) == str(err_j.value)
 
 
@@ -242,13 +242,13 @@ def test_density_control_scores_under_the_stage_forward(knot, monkeypatch):
     logs = []
     tr = Trainer(cfg, ds, log=logs.append)
     raw, mask = knot_params(cfg)
-    nxt = tr._density_control(params_from_numpy(raw), tt(mask), cfg.init_n,
-                              raw["centers"][:cfg.init_n], 0,
+    nxt = tr._density_control(params_from_numpy(raw, device="cpu"), tt(mask),
+                              cfg.init_n, raw["centers"][:cfg.init_n], 0,
                               np.random.default_rng(0))
     assert seen == {"coverage": "sigmoid", "k": 128.0, "kern": None}
     assert any("split 10" in line for line in logs)
-    tr._density_control(params_from_numpy(raw), tt(mask), cfg.init_n,
-                        raw["centers"][:cfg.init_n], 1,
+    tr._density_control(params_from_numpy(raw, device="cpu"), tt(mask),
+                        cfg.init_n, raw["centers"][:cfg.init_n], 1,
                         np.random.default_rng(0))
     assert seen["coverage"] == "gaussian"
     assert nxt.n == int(nn(nxt.centers).shape[0]) > 0

@@ -231,7 +231,7 @@ def test_supersampled_step_matches_jax(knot, monkeypatch, culled, ss):
         jnp.zeros(n_tiles, jnp.int32), jnp.int32(0), jnp.asarray(t_cache0),
         empty, empty.astype(bool))
 
-    pt = params_from_numpy(raw)
+    pt = params_from_numpy(raw, device="cpu")
     cache_t = torch.as_tensor(t_cache0.copy())
     step_t = tsb.make_device_step(cfg, march_normal_fn=None, batch=512,
                                   culled_march_fn=jax_culled_march,

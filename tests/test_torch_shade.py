@@ -108,7 +108,7 @@ def test_masked_padding_matches_and_padded_grads_are_zero(setup):
 
 def test_no_gradient_reaches_t_or_normal(setup):
     raw, ro, rd, t, normal, cot = setup
-    p = params_from_numpy(raw)
+    p = params_from_numpy(raw, device="cpu")
     c, col, r, ld, amb = activate(p)
     t_in = tt(t).requires_grad_(True)
     n_in = tt(normal).requires_grad_(True)
@@ -161,7 +161,7 @@ def test_online_pass_matches_plain_and_jax_kernel(kind, m, live, lanes):
     """Forward, atol 1e-5 (rgb lies in [0, 1]): the running minimum and the
     rescaled sums round differently from the two-pass softmax."""
     raw, mask, ro, rd, t, normal = _scene(kind, m, live)
-    c, col, r, ld, amb = activate(params_from_numpy(raw))
+    c, col, r, ld, amb = activate(params_from_numpy(raw, device="cpu"))
     with torch.no_grad():
         table = k2.shade_table(c, r, col, tt(mask), ld, amb)
         assert int(table[-1, 1]) == int(np.flatnonzero(mask).max()) + 1
@@ -192,7 +192,7 @@ def test_backward_model_matches_autograd_float64(kind, m, live):
     f64 = lambda x: tt(x).double()  # noqa: E731
     cot = f64(np.random.default_rng(5).normal(0, 1, (ro.shape[0], 3)))
     leaves = [x.detach().double().requires_grad_()
-              for x in activate(params_from_numpy(raw))]
+              for x in activate(params_from_numpy(raw, device="cpu"))]
     c, col, r, ld, amb = leaves
     out = k2.shade_plain(f64(ro), f64(rd), f64(t), f64(normal), c, r, col,
                          ld, amb, K, mask=tt(mask))
@@ -237,7 +237,7 @@ def test_pack_table_matches_jax_kernel_inputs(monkeypatch):
     rays = jnp.zeros((8, 3), jnp.float32)
     jk.shade_fused(rays, rays, jnp.zeros((8, 1)), rays, jc, jr, jcol, jld,
                    jamb, K, mask=jnp.asarray(mask), interpret=True)
-    c, col, r, ld, amb = activate(params_from_numpy(raw))
+    c, col, r, ld, amb = activate(params_from_numpy(raw, device="cpu"))
     table = nn(k2.shade_table(c, r, col, tt(mask), ld, amb))
     assert table.shape == (2 * m + 2, 4)
     prim, c_sq, scal = seen["prim"][:, :m], seen["c_sq"][0, :m], seen["scal"][0]
@@ -258,7 +258,7 @@ def test_pack_table_matches_jax_kernel_inputs(monkeypatch):
 
 def test_table_visits_all_columns_without_a_mask_or_a_live_slot():
     raw = random_raw_params(2, 5)
-    c, col, r, ld, amb = activate(params_from_numpy(raw))
+    c, col, r, ld, amb = activate(params_from_numpy(raw, device="cpu"))
     for mask in (None, torch.zeros(5, dtype=torch.bool)):
         assert k2.shade_table(c, r, col, mask, ld, amb)[-1, 1] == 5.0
 
@@ -334,7 +334,7 @@ def test_cuda_kernels_large_table(cuda_device):
     mask = np.arange(m) < live
     ro, rd = (np.asarray(x) for x in
               j_rays(16, 16, [0.0, 0.3, -1.5], [0, 0, 0], 50.0))
-    p = params_from_numpy(raw)
+    p = params_from_numpy(raw, device="cpu")
     c, _, r, _, _ = activate(p)
     from burn_raymarching_tpu_torch.ops.cuda.march_shade_kernel import (
         march_shade_plain,
@@ -357,8 +357,9 @@ def test_cuda_kernels_large_table(cuda_device):
 
 def _cuda_case(kind, m, live, dev):
     raw, mask, ro, rd, t, normal = _scene(kind, m, live)
-    c, col, r, ld, amb = (x.detach().to(dev)
-                          for x in activate(params_from_numpy(raw)))
+    c, col, r, ld, amb = (
+        x.detach().to(dev)
+        for x in activate(params_from_numpy(raw, device="cpu")))
     rays = tuple(tt(x).to(dev) for x in (ro, rd, t, normal))
     return rays, (c, r, col, ld, amb), tt(mask).to(dev)
 

@@ -173,7 +173,7 @@ def test_sharded_chunk_runner_matches_jax(tmp_path, monkeypatch, case, data,
     chunk, steps, stage = 4, 8, 1
     cfg_kw = dict(CUTS[case], steps_per_call=chunk)
     arrays = morton_rays()
-    ds = RayDataset(*arrays)
+    ds = RayDataset(*arrays, device="cpu")
     packed = ds.packed.numpy()
     raw = params_to_numpy(Trainer(TrainConfig(**cfg_kw), ds,
                                   log=lambda s: None)._init_params())

@@ -55,7 +55,7 @@ CONFIGS = [(1, 2), (1, 4), (2, 1), (2, 2)]
 def inputs() -> dict:
     rng = np.random.default_rng(0)
     ro, rd = (x.numpy() for x in create_camera_rays(
-        16, 16, [0.0, 0.5, -2.5], [0.0, 0.0, 0.0], 50.0))
+        16, 16, [0.0, 0.5, -2.5], [0.0, 0.0, 0.0], 50.0, device="cpu"))
     f32 = np.float32
     inp = {
         "centers": rng.normal(0, 0.3, (M, 3)).astype(f32),

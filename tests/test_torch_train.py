@@ -88,7 +88,8 @@ def test_five_training_steps_match_jax(small_dataset):
 
     # Port: the trainer's step body with injected indices.
     pt, mask_t = pad_params(params_from_numpy(
-        {k: np.asarray(getattr(j_init(7), k)) for k in PARAM_KEYS}), 8)
+        {k: np.asarray(getattr(j_init(7), k)) for k in PARAM_KEYS},
+        device="cpu"), 8)
     opt = make_optimizer(cfg, pt)
     step_fn = make_device_step(cfg, march_normal_fn=None, batch=256)
     packed_t = torch.as_tensor(packed)
@@ -166,7 +167,8 @@ def test_five_warm_dense_steps_match_jax(small_dataset, monkeypatch):
     empty = jnp.zeros((0, 0), jnp.int32)
 
     pt, mask_t = pad_params(params_from_numpy(
-        {k: np.asarray(getattr(j_init(7), k)) for k in PARAM_KEYS}), 8)
+        {k: np.asarray(getattr(j_init(7), k)) for k in PARAM_KEYS},
+        device="cpu"), 8)
     opt = make_optimizer(cfg, pt)
     step_t = make_device_step(cfg, march_normal_fn=march_shade, batch=256,
                               warm=True)
@@ -313,7 +315,7 @@ def test_five_culled_training_steps_match_jax(tiny_knot, monkeypatch):
     # scores that float32 rounding orders differently in the two packages.
     cfg = dataclasses.replace(cfg, cull_tile=128, cull_cluster_group=8,
                               cull_budget=128)
-    ds = build_dataset(cfg)
+    ds = build_dataset(cfg, device="cpu")
     packed = nn(ds.packed)
     n_tiles = packed.shape[0] // cfg.cull_tile
     rng = np.random.default_rng(4)
@@ -327,7 +329,7 @@ def test_five_culled_training_steps_match_jax(tiny_knot, monkeypatch):
                             ._init_params(), 128)
     raw = {k: nn(getattr(pt, k)) for k in PARAM_KEYS}
     mask = nn(mask_t)
-    cl_t = build_clusters(raw["centers"], mask=mask, group=8)
+    cl_t = build_clusters(raw["centers"], mask=mask, group=8, device="cpu")
 
     # JAX: its step body, sampler patched to return the injected tile ids.
     calls = iter(tids)
@@ -437,7 +439,7 @@ def test_morton_dataset_and_tile_pools_match_jax(tiny_knot):
 
     cfg = dataclasses.replace(_c4_cfg(tiny_knot), cull_tile=128)
     assert cfg.dataset_order == "morton"
-    ds, ds_j = build_dataset(cfg), j_build(cfg)
+    ds, ds_j = build_dataset(cfg, device="cpu"), j_build(cfg)
     np.testing.assert_allclose(nn(ds.packed), np.asarray(ds_j.packed),
                                rtol=1e-6, atol=1e-7)
     fg, n_fg = ds.tile_fg(128)
@@ -474,7 +476,7 @@ def test_ceiling_and_init_psnr_match_jax(tiny_knot):
 
     cfg = dataclasses.replace(_c4_cfg(tiny_knot), cull_budget=64,
                               cull_tile=128)
-    tr = Trainer(cfg, build_dataset(cfg), log=lambda s: None)
+    tr = Trainer(cfg, build_dataset(cfg, device="cpu"), log=lambda s: None)
     cams = j_cams(cfg.cameras_json)
     tgts = [load_image_as_array(c["file"]) for c in cams]
     kw = dict(smooth_k=128.0, softmax_sharpness=40.0, mask_sharpness=60.0)

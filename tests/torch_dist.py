@@ -73,7 +73,7 @@ def morton_rays(size: int = 32):
     )
 
     ro, rd = create_camera_rays(size, size, [0.0, 0.5, -2.5], [0, 0, 0],
-                                50.0)
+                                50.0, device="cpu")
     ro, rd = ro.numpy(), rd.numpy()
     perm = multi_view_morton_permutation(size, size, 1)
     return ro[perm], rd[perm], np.clip(np.abs(rd[perm]), 0, 1)
@@ -296,7 +296,7 @@ def train_distributed(rank, world, data, model, cfg_kw, dataset_arrays,
     if "density" in cfg_kw:
         cfg_kw["density"] = DensityConfig(**cfg_kw["density"])
     cfg = TrainConfig(**cfg_kw)
-    ds = RayDataset(*dataset_arrays)
+    ds = RayDataset(*dataset_arrays, device="cpu")
     tr = DistributedTrainer(cfg, ds, data=data, model=model,
                             log=lambda s: None)
     if kernel_wrappers:
@@ -432,8 +432,8 @@ def sharded_chunk_vs_steps(rank, world, data, model, cfg_kw, dataset_arrays,
     from burn_raymarching_tpu_torch.train.step_body import lr_scale_tree
 
     cfg = TrainConfig(**cfg_kw)
-    tr = DistributedTrainer(cfg, RayDataset(*dataset_arrays), data=data,
-                            model=model, log=lambda s: None)
+    tr = DistributedTrainer(cfg, RayDataset(*dataset_arrays, device="cpu"),
+                            data=data, model=model, log=lambda s: None)
     kernels = dict(culled_march_fn=culled_march_normals, warm=tr.warm)
     scales = lr_scale_tree(cfg, 0)
     out = {}
@@ -527,9 +527,10 @@ def sharded_chunks_with_draws(rank, world, data, model, cfg_kw,
     from burn_raymarching_tpu_torch.train.optimizer import make_optimizer
 
     cfg = TrainConfig(**cfg_kw)
-    tr = DistributedTrainer(cfg, RayDataset(*dataset_arrays), data=data,
-                            model=model, log=lambda s: None)
-    padded, mask = tr._place(*pad_params(params_from_numpy(raw), slots))
+    tr = DistributedTrainer(cfg, RayDataset(*dataset_arrays, device="cpu"),
+                            data=data, model=model, log=lambda s: None)
+    padded, mask = tr._place(*pad_params(params_from_numpy(raw, device="cpu"),
+                                         slots))
     if tr.warm:
         lo = tr.data_axis.index * tr.dataset.p_local
         tr.t_cache.copy_(torch.as_tensor(t_init[lo:lo + tr.dataset.p_local]))

@@ -318,9 +318,10 @@ def tiny_knot_dataset(out_dir: str, *extra_flags, views: int = 2,
                                    cull_cluster_group=8, **cfg_kw)
     fields = {f.name for f in dataclasses.fields(TrainConfig)}
     assert fields == {f.name for f in dataclasses.fields(port_cfg)}
-    ds = build_dataset(port_cfg)
+    ds = build_dataset(port_cfg, device="cpu")
     arrays = tuple(nn(x).copy() for x in (ds.rays_o, ds.rays_d, ds.targets))
-    ds = RayDataset(*arrays, fg_threshold=port_cfg.fg_pixel_threshold)
+    ds = RayDataset(*arrays, fg_threshold=port_cfg.fg_pixel_threshold,
+                    device="cpu")
     ds_j = JaxDataset(*arrays, fg_threshold=port_cfg.fg_pixel_threshold)
     return port_cfg, arrays, ds, ds_j
 
