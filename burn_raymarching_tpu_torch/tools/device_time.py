@@ -101,3 +101,56 @@ def profile_calls(one, steps: int, margin_s: float = WINDOW_MARGIN_S,
                                          for k, d in hand.items() if d > 0},
             "hand_kernel_events": {k: n for k, n in hand_events.items()
                                    if n > 0}}
+
+
+def chained_ms(fn, calls: int, per_graph: int = 0, reps: int = 3) -> float:
+    """Device ms per call of ``calls`` chained calls of ``fn()``, as a
+    ``lax.scan`` over them times it: ``per_graph`` calls (all of them by
+    default) are captured into one CUDA graph, which is replayed
+    ``calls / per_graph`` times between CUDA events; one warm replay, then
+    the best of ``reps``. Calls on one stream run one after another, so
+    each waits for the last. The kernel launch counters count what every
+    replay launches, as train/chunk.py counts them: the capture's launches
+    are taken off and each replay adds them."""
+    from burn_raymarching_tpu_torch.ops.cuda import build
+
+    per_graph = per_graph or calls
+    if calls % per_graph:
+        raise ValueError(f"{calls} calls do not divide into graphs of "
+                         f"{per_graph}")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = build.launch_counts()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(per_graph):
+            fn()
+    after = build.launch_counts()
+    per_replay = {f: after[f] - before[f] for f in after
+                  if after[f] != before[f]}
+    for f, d in per_replay.items():
+        f.launches -= d
+
+    def run() -> None:
+        for _ in range(calls // per_graph):
+            graph.replay()
+            for f, d in per_replay.items():
+                f.launches += d
+
+    run()
+    torch.cuda.synchronize()
+    best = math.inf
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / calls)
+    del graph
+    return best

@@ -183,7 +183,21 @@ non-zero without the final result line:
                    scene.json, params_from_numpy, init_scene_params,
                    init_scene_params_cloud, create_camera_rays and
                    build_clusters, each called without a device, must
-                   return tensors on the card.
+                   return tensors on the card;
+ 17. variants    — K5 (csrc/march_variants.cu, the port of
+                   scripts/exp_march_variants.py::variant_march) against its
+                   plain version in all eight clamp / exp2 / coord
+                   combinations at the variant tool's shape (16,384 rays,
+                   100 live of 128 slots, 40 steps, 128 rays a block):
+                   hit rays and all rays within 5x the plain version's own
+                   gap to float64 (as K3), for clamp also the rays its 1e-8
+                   floor stalls; bitwise equal at 64 and 1,024 rays a
+                   block; then the two march tools' main at full size
+                   (tools/exp_march_variants.py: its three tables over the
+                   eight variants and seven block sizes; tools/roofline.py:
+                   the empty-kernel floor, the unfused exp+sqrt stream and
+                   K1 at 40 and 16 steps, 200 chained iterations), one
+                   timing repeat each, with K5 and K1 counted.
 K1's early exit (``early_exit=True``; no path sets it) is held at every
 table width of phase 3 against the fixed-count launch, against its plain
 version, and timed beside the fixed-count launch.
@@ -196,6 +210,8 @@ the config-5 path (``launches_c5``), on the distributed paths
 the bench's (``launches_bench``: its three variants and the flagship) and
 on the dry run's (``launches_dryrun``: phase 15's runs, all ranks), on
 the library defaults' (``launches_defaults``: phase 16's training run),
+on the march tools' (``launches_variants``: phase 17's tool runs; K5 runs
+on no other path, and reads 0 on the others),
 error, ``ms`` (the wrapper call between CUDA events),
 ``device_ms`` (the same call replayed from a CUDA graph), the plain
 version's time, ``bound_ms`` (the least time the card could take, see
@@ -232,7 +248,8 @@ K2_NARROW = (10, 16)
 # Train-view PSNR floor after the short 2 x 100-step run: far below a full
 # run's ~30 dB, far above the ~10 dB of an untrained or broken scene.
 MIN_PSNR_DB = 15.0
-LIBRARIES = ("march_shade", "shade", "culled_march", "repulsion", "noop")
+LIBRARIES = ("march_shade", "shade", "culled_march", "repulsion",
+             "march_variants", "noop")
 # Config 4 (runs/c4_r2): the knot capture, the prior-seeded init and the
 # per-tile top-K budget.
 C4_VIEWS, C4_SIZE, C4_GT_N, C4_INIT_N = 30, 512, 400, 5120
@@ -367,8 +384,8 @@ def tensor_bytes(*tensors) -> int:
 
 
 def march_bound(pairs: float, *tensors) -> dict:
-    """K1 / K3: one sqrt and one exp per (point, live primitive) pair, with
-    ~12 other FP32 operations around them."""
+    """K1 / K3 / K5: one sqrt and one exp per (point, live primitive) pair,
+    with ~12 other FP32 operations around them."""
     return bound(tensor_bytes(*tensors), sfu_ops=2.0 * pairs,
                  flops=12.0 * pairs)
 
@@ -1782,10 +1799,11 @@ def kernel_counters() -> dict:
             "repulsion_bwd": k4.launch_rep_bwd}
 
 
-def counted(torch, run) -> tuple:
-    """``run()`` with every kernel's count set to 0 just before and read
-    just after → (its result, launches per kernel, seconds)."""
-    counters = kernel_counters()
+def counted(torch, run, counters: dict | None = None) -> tuple:
+    """``run()`` with every kernel's count (of ``counters``, by default the
+    training kernels') set to 0 just before and read just after → (its
+    result, launches per kernel, seconds)."""
+    counters = counters or kernel_counters()
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -2563,6 +2581,7 @@ def phase_distributed(torch, dev, tmp: str) -> tuple[dict, dict]:
 
 
 _PALLAS = "burn_raymarching_tpu/ops/pallas/"
+_SCRIPTS = "scripts/"
 _CSRC = "burn_raymarching_tpu_torch/csrc/"
 SOURCES = {
     "march_shade": (_CSRC + "march_shade.cu",
@@ -2582,7 +2601,12 @@ SOURCES = {
                       _PALLAS + "repulsion_kernel.py:205"),
     "repulsion_bwd": (_CSRC + "repulsion.cu",
                       _PALLAS + "repulsion_kernel.py:227"),
+    # K5: on no training or quality path; phase 17 drives it.
+    "march_variants": (_CSRC + "march_variants.cu",
+                       _SCRIPTS + "exp_march_variants.py:116"),
 }
+# The kernels that no training path runs, counted on phase 17's path.
+VARIANT_KERNELS = ("march_variants",)
 
 
 # Phase 14: the bench's launches per variant, by wrapper name (the
@@ -3012,6 +3036,132 @@ def phase_defaults(torch, tmp: str) -> dict:
     return launches
 
 
+# Phase 17: K5 at the variant tool's shape (16,384 rays, 100 live of 128
+# slots, k = 18.5), 40 steps, VARIANT_TILE rays a block; the other block
+# sizes must give the same bits. The two march tools run with one timing
+# repeat each (their defaults take three).
+VARIANT_TILE, VARIANT_STEPS = 128, 40
+VARIANT_OTHER_TILES = (64, 1024)
+
+
+def variant_counters() -> dict:
+    """The training kernels' counters and K5's."""
+    from burn_raymarching_tpu_torch.ops.cuda import march_variants_kernel as k5
+
+    return {**kernel_counters(), "march_variants": k5.variant_march}
+
+
+def variant_case(torch, k5, inp: dict, name: str, flags: tuple,
+                 failures: list) -> dict:
+    """K5 in one flag combination against its plain version: hit rays
+    (t < 10) and all rays (relative) within ``march_noise_tols`` (5x the
+    plain float32 version's own gap to float64, as for K3); for ``clamp``
+    also the rays that the 1e-8 floor stalls (t >= 10 after 40 steps of
+    ~1), in absolute t, within 5x their float32 gap to float64. Bitwise
+    equal at VARIANT_OTHER_TILES. Times and bound: 2 SFU operations per
+    (ray, live slot, evaluation), 47 evaluations a ray."""
+    clamp, _, coord = flags
+    prim = inp["prim_far"] if coord else inp["prim"]
+    args = (inp["ro"], inp["rd"], inp["t0"], prim, inp["c_sq"], inp["k_arr"],
+            VARIANT_STEPS)
+    t_k, n_k = k5.variant_march(*args, VARIANT_TILE, *flags)
+    t_p, n_p = k5.variant_march_plain(*args, VARIANT_TILE, *flags)
+    t_64, n_64 = k5.variant_march_plain(*(a.double() for a in args[:6]),
+                                        VARIANT_STEPS, VARIANT_TILE, *flags)
+    errs = march_errors(torch, t_k, n_k, t_p, n_p)
+    tols = march_noise_tols(torch, t_p, n_p, t_64, n_64)
+    if clamp:
+        stalled = t_p[:, 0] >= 10.0
+        errs["stalled_rays"] = int(stalled.sum())
+        if errs["stalled_rays"]:
+            errs["max_abs_err_t_stalled"] = (
+                t_k - t_p).abs()[stalled].max().item()
+            tols["max_abs_err_t_stalled"] = 5.0 * (
+                t_p.double() - t_64).abs()[stalled].max().item() + 1e-5
+    for key, tol in tols.items():
+        check_close(failures, f"K5 {name} {key}", errs[key], tol)
+    for tile in VARIANT_OTHER_TILES:
+        t_b, n_b = k5.variant_march(*args, tile, *flags)
+        if not (torch.equal(t_b, t_k) and torch.equal(n_b, n_k)):
+            failures.append(f"K5 {name}: tile_n {tile} differs bitwise from "
+                            f"tile_n {VARIANT_TILE}")
+    live = int(inp["mask"].sum())
+    out = {"errors": errs, "tol": tols,
+           "ms": time_ms(torch, lambda: k5.variant_march(
+               *args, VARIANT_TILE, *flags)),
+           "device_ms": graph_ms(torch, lambda: k5.variant_march(
+               *args, VARIANT_TILE, *flags)),
+           "plain_ms": time_ms(torch, lambda: k5.variant_march_plain(
+               *args, VARIANT_TILE, *flags), reps=5),
+           **march_bound(t_k.shape[0] * live * (VARIANT_STEPS + 7.0),
+                         *args[:5], t_k, n_k)}
+    emit("kernel", name="march_variants", variant=name,
+         tile_n=VARIANT_TILE, steps=VARIANT_STEPS, slots=prim.shape[1],
+         live=live, **out)
+    return out
+
+
+def phase_variants(torch, dev) -> tuple[dict, dict]:
+    """K5 against its plain version in all eight flag combinations, then
+    the two march tools' main at full size (tools/exp_march_variants.py:
+    16,384 rays, 128 slots, its three tables over every variant and block
+    size; tools/roofline.py: 16,384 rays, 200 chained iterations) with
+    every count set to 0 just before and read just after → (launches per
+    kernel on that path, the ``kernels`` line's K5 row)."""
+    from burn_raymarching_tpu_torch.ops.cuda import march_variants_kernel as k5
+    from burn_raymarching_tpu_torch.tools import exp_march_variants as emv
+    from burn_raymarching_tpu_torch.tools import roofline
+
+    inp = emv.make_inputs(128, dev)
+    failures = []
+    cases = {name: variant_case(torch, k5, inp, name, flags, failures)
+             for name, flags in emv.VARIANTS.items()}
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+    def tools():
+        t0 = time.perf_counter()
+        sweep = emv.main(["--reps", "1"])
+        t1 = time.perf_counter()
+        roof = roofline.main(["--reps", "1"])
+        return sweep, roof, t1 - t0, time.perf_counter() - t1
+
+    (sweep, roof, sweep_s, roof_s), launches, seconds = counted(
+        torch, tools, variant_counters())
+    emit("march_tools", seconds=seconds, exp_march_variants_s=sweep_s,
+         roofline_s=roof_s, launches=launches,
+         base_vs_plain_march=sweep["base_vs_plain_march"],
+         deviation=sweep["deviation"], variant_ms=sweep["ms"],
+         floor_ms=roof["floor_ms"], xcend_ms=roof["xcend_ms"],
+         march_ms=roof["march_ms"], ratio=roof["ratio"], card=roof["card"])
+    require_launches(launches, ("march_variants", "march_shade"),
+                     "march tools")
+    base = sweep["base_vs_plain_march"]
+    check_close(failures, "exp_march_variants base vs plain march t",
+                base["max_dt_hit"], MARCH_TOLS["max_abs_err_t_hit"])
+    check_close(failures, "exp_march_variants base vs plain march normals",
+                base["max_dn_hit"], MARCH_TOLS["max_abs_err_normal_hit"])
+    times = [ms for row in sweep["ms"].values() for ms in row.values()]
+    times += [*roof["xcend_ms"].values(), *roof["march_ms"].values(),
+              *roof["ratio"].values(), roof["floor_ms"]]
+    if not all(math.isfinite(x) and x > 0 for x in times):
+        failures.append(f"march tools: a time is not positive: {times}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    row = dict(max_abs_err=cases["base"]["errors"]["max_abs_err_t_hit"],
+               **{key: cases["base"][key] for key in (
+                   "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
+               library_ms=None, tile_n=VARIANT_TILE,
+               variants={name: {
+                   "max_abs_err_t_hit": c["errors"]["max_abs_err_t_hit"],
+                   "max_abs_err_normal_hit":
+                       c["errors"]["max_abs_err_normal_hit"],
+                   "ms": c["ms"], "device_ms": c["device_ms"],
+                   "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"]}
+                   for name, c in cases.items()})
+    return launches, row
+
+
 def main() -> int:
     import torch
 
@@ -3038,6 +3188,7 @@ def main() -> int:
         launches_bench, flagship_shape = phase_bench(torch, dev, tmp)
         launches_dryrun, dryrun_shape = phase_dryrun(torch, dev)
         launches_defaults = phase_defaults(torch, tmp)
+    launches_variants, kernels["march_variants"] = phase_variants(torch, dev)
     kernels["culled_march"].update(refine_shape, **c5_shape, **union_shape,
                                    **flagship_shape, **dryrun_shape)
     kernels["march_shade"].update(viewer_shape)
@@ -3045,22 +3196,26 @@ def main() -> int:
     # ``launches_quality``: the refine and guard paths (phases 9 and 10);
     # ``launches_c5``, ``launches_distributed``, ``launches_viewer``,
     # ``launches_bench``, ``launches_dryrun`` and ``launches_defaults``:
-    # phases 11, 12, 13, 14, 15 and 16.
+    # phases 11, 12, 13, 14, 15 and 16; ``launches_variants``: phase 17,
+    # the march tools' path, the only one that runs K5.
     # Every path had its counts set to 0 just before it and read after it,
-    # and every kernel is counted on one of the two quality paths.
+    # and every training kernel is counted on one of the two quality paths.
     quality = {**launches_guard, **launches_refine}
-    if set(quality) != set(SOURCES):
+    training = set(SOURCES) - set(VARIANT_KERNELS)
+    if set(quality) != training:
         raise AssertionError(f"kernels not counted on a quality path: "
-                             f"{sorted(set(SOURCES) - set(quality))}")
+                             f"{sorted(training - set(quality))}")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k][0],
-         "replaces": SOURCES[k][1], "launches": launches[k],
-         "launches_quality": quality[k], "launches_c5": launches_c5[k],
-         "launches_distributed": launches_dist[k],
-         "launches_viewer": launches_viewer[k],
-         "launches_bench": launches_bench[k],
-         "launches_dryrun": launches_dryrun[k],
-         "launches_defaults": launches_defaults[k], **kernels[k]}
+         "replaces": SOURCES[k][1], "launches": launches.get(k, 0),
+         "launches_quality": quality.get(k, 0),
+         "launches_c5": launches_c5.get(k, 0),
+         "launches_distributed": launches_dist.get(k, 0),
+         "launches_viewer": launches_viewer.get(k, 0),
+         "launches_bench": launches_bench.get(k, 0),
+         "launches_dryrun": launches_dryrun.get(k, 0),
+         "launches_defaults": launches_defaults.get(k, 0),
+         "launches_variants": launches_variants[k], **kernels[k]}
         for k in SOURCES]}), flush=True)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
