@@ -63,9 +63,9 @@ culled_march_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
   tab.cap = min(kk, CM_CHUNK);
   tab.cq = smem;
   tab.rr = reinterpret_cast<float*>(smem + tab.cap);
-  tab.n = live_columns(tab.g, kk, &n_live);
+  tab.n = live_columns(tab, kk, &n_live);
   tab.resident = tab.n <= tab.cap;
-  if (tab.resident) stage_columns(tab, 0, tab.n);
+  if (tab.resident) tab.stage(0, tab.n);
 
   const int lane = threadIdx.x & 31;
   const int first = (blockIdx.x * CM_WARPS + (threadIdx.x >> 5)) * CM_RAYS;

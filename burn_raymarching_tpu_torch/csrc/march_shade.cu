@@ -33,15 +33,8 @@
 //     num_steps * 1e-5 short of where the fixed-count march leaves them.
 #include "common.cuh"
 
-#define MS_WARPS 8
-#define MS_RAYS 2
-#define MS_CHUNK 1024
-// pick_lanes: columns a lane should walk between butterflies, and the warps
-// wanted in flight (about 2 per scheduler of 132 SMs) before lanes per ray
-// stop growing.
-#define MS_COLUMNS_PER_LANE 16
-#define MS_TARGET_WARPS 1024
-
+// The block shape, the lane rule (pick_lanes) and the kernel body
+// (dense_march) are common.cuh's, shared with K5.
 template <int L, bool EXIT>
 __global__ void __launch_bounds__(MS_WARPS * 32)
 march_shade_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
@@ -50,54 +43,10 @@ march_shade_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
                    const float* __restrict__ kp, int num_steps,
                    float normal_eps, float* __restrict__ t_out,
                    float* __restrict__ n_out) {
-  const float k = __ldg(kp);
-  __shared__ float4 cq[MS_CHUNK];
-  __shared__ float rr[MS_CHUNK];
-  __shared__ int n_live;
   MarchTable tab;
   tab.g = prim;
-  tab.cap = MS_CHUNK;
-  tab.cq = cq;
-  tab.rr = rr;
-  tab.n = live_columns(prim, m, &n_live);
-  tab.resident = tab.n <= MS_CHUNK;
-  if (tab.resident) stage_columns(tab, 0, tab.n);
-
-  constexpr int GROUPS = 32 / L;
-  const int lane = threadIdx.x & 31;
-  const long long group =
-      ((long long)blockIdx.x * MS_WARPS + (threadIdx.x >> 5)) * GROUPS +
-      lane / L;
-  size_t ray[MS_RAYS];
-  bool store[MS_RAYS];
-#pragma unroll
-  for (int i = 0; i < MS_RAYS; ++i) {
-    // Groups past the last ray march a copy of it and store nothing, so
-    // block barriers and warp shuffles stay uniform.
-    const long long r = group * MS_RAYS + i;
-    store[i] = r < n;
-    ray[i] = (size_t)(r < n ? r : n - 1);
-  }
-  march_rays<L, MS_RAYS, true, EXIT>(tab, lane % L, ro, rd, t0, ray, store, k,
-                                     num_steps, normal_eps, t_out, n_out);
-}
-
-// Lanes per ray, a power of two: enough that a lane walks about
-// MS_COLUMNS_PER_LANE columns per evaluation, more while fewer than
-// MS_TARGET_WARPS warps would be in flight, never more than the slot count
-// rounded up, or 32. Fewer lanes mean shorter butterflies and no idle lanes
-// at small M; more lanes mean more warps when N is small. Measured at
-// 16,384 rays on an H100 with each lane count forced in turn: 4 lanes are
-// fastest at M = 8 and 32, 8 at M = 128, which is what this rule picks.
-static int pick_lanes(int n, int m) {
-  int cap = 1;
-  while (cap < m && cap < 32) cap <<= 1;
-  int lanes = 1;
-  while (lanes < cap && lanes * MS_COLUMNS_PER_LANE < m) lanes <<= 1;
-  while (lanes < cap &&
-         (long long)n * lanes / (32 * MS_RAYS) < MS_TARGET_WARPS)
-    lanes <<= 1;
-  return lanes;
+  dense_march<L, EXIT>(tab, m, ro, rd, t0, n, __ldg(kp), num_steps,
+                       normal_eps, t_out, n_out);
 }
 
 template <int L, bool EXIT>
@@ -105,10 +54,10 @@ static int launch_lanes(const float* ro, const float* rd, const float* t0,
                         const float* prim, int n, int m, const float* k,
                         int num_steps, float normal_eps, float* t_out,
                         float* n_out, cudaStream_t stream) {
-  const long long per_block = (long long)MS_WARPS * (32 / L) * MS_RAYS;
-  const dim3 grid((unsigned)((n + per_block - 1) / per_block));
-  march_shade_kernel<L, EXIT><<<grid, MS_WARPS * 32, 0, stream>>>(
-      ro, rd, t0, prim, n, m, k, num_steps, normal_eps, t_out, n_out);
+  march_shade_kernel<L, EXIT><<<dense_blocks(n, L), MS_WARPS * 32, 0,
+                                stream>>>(ro, rd, t0, prim, n, m, k,
+                                          num_steps, normal_eps, t_out,
+                                          n_out);
   return (int)cudaGetLastError();
 }
 

@@ -1,220 +1,154 @@
-// K5: the march micro-variant kernel: a dense detached march + reattach point
-// + 6-tap normals with three arithmetic switches, for the variant sweep of
-// tools/exp_march_variants.py.
+// K5: the march micro-variant kernel: K1's dense detached march + reattach
+// point + 6-tap normals with three arithmetic switches, for the variant
+// sweep of tools/exp_march_variants.py.
 //
 // Replaces the TPU kernel scripts/exp_march_variants.py (variant_march ->
 // _kernel, soft-min _soft_min_rows). Per ray: num_steps iterations
 // t <- min(t + softmin_k(ro + rd t), 1e4) from t0, one more soft-min giving
 // p_final = ro + rd (t + d), then 6-tap central-difference normals at
-// eps = 1e-4 with +1e-6 inside the length's sqrt. Per (point, slot) pair
-// val = sqrt(q) (-k) + k r, with the switches (template flags, all eight
-// combinations instantiated):
-//   COORD  q = max((dx^2 + dy^2) + dz^2, 1e-6) from the centers (masked slots
-//          carry far centers); otherwise the expanded
-//          q = max((|p|^2 + c_sq) - 2 p.c, 1e-6) with the K = 3 dot as FMAs
-//          (masked slots carry c_sq = 1e30);
-//   CLAMP  val = min(val, 80) and no max: s = sum exp(val), out = log(max(s,
-//          1e-8)) / (-k). A ray far from every slot underflows s to 0 and
-//          steps by the floor's log(1e-8) / (-k): that is the function the
-//          TPU kernel computes, and it is kept;
-//          otherwise out = (log(max(sum exp(val - mx), 1e-8)) + mx) / (-k),
-//          mx the row max, taken here in one pass (online soft-min, as
-//          common.cuh's march core): a running max and a sum relative to it,
-//          merged over the ray's lanes by butterflies. It differs from the
-//          two-pass form by float32 rounding only;
-//   EXP2   exp2f(x log2 e) and log2f(x) ln 2 in place of expf(x) and logf(x).
-// Every transcendental is the full-precision library function (sqrtf, expf,
-// exp2f, logf, log2f), not the SFU's approximate forms of common.cuh's
-// pair_exp / pair_sqrt: how much those forms gain is what the sweep reads
-// against K1.
+// eps = 1e-4 with +1e-6 inside the length's sqrt; per (point, slot) pair
+// val = sqrt(q) (-k) + k r.
 //
-// Block shape: a block marches tile_n consecutive rays (the TPU kernel's
-// grid step; the TPU grid n // tile_n drops a remainder, the wrapper raises
-// on one). MV_LANES = 8 lanes per ray (K1's lane count at M = 128) stride
-// over the slots; a block holds min(tile_n, 128) lane groups (at most 1,024
-// threads, rounded up to whole warps), and a group marches rays group,
-// group + groups, ... of the tile in turn, so tile_n = 64 is 512 threads
-// marching one ray a group, 128 is 1,024 threads, 1,024 is 1,024 threads
-// marching 8 rays a group one after another. Groups past the tile's last
-// ray march a copy of it and store nothing (warp shuffles stay uniform).
-// The [4, M] table and c_sq are staged once per block into shared memory
-// as float4 (cx, cy, cz, c_sq) plus k r (20 bytes a slot, M <= 2,457).
+// The TPU script's ``base`` is the shipped march kernel, so here ``base`` is
+// K1's march: the whole kernel is common.cuh's dense_march, as K1's is, with
+// K1's fold, the SFU forms of sqrt and exp, MS_RAYS = 2 rays a lane group,
+// pick_lanes' lane count, and only the columns up to the last live slot
+// visited. On the same table (K1's pack: centers, |c|^2 = c_sq, r) ``base``
+// gives K1's t and normals bit for bit. The switches are the core's template
+// flags (all eight combinations instantiated for every lane count; see
+// softmin_points for what each computes):
+//   COORD  (p - c)^2 by coordinates from the staged -2c;
+//   CLAMP  exp(min(val, 80)) and no max: the function the TPU kernel
+//          computes, wrong on far rays (their sum underflows to the 1e-8
+//          floor), kept as it is;
+//   EXP2   the TPU's base-2 transcendentals. Under the SFU forms ``base``
+//          already issues ex2.approx(x log2 e), so a variant that changed
+//          only the final log to log2 would time nothing. This one folds
+//          log2 e into the staged scale instead (k log2 e, and r k log2 e
+//          in the table): the per-pair exp loses its multiply, the per-
+//          evaluation exp and log become exp2f and log2f. Its t and normals
+//          differ from ``base`` by the rounding of the folded scale (the
+//          tool's table 2).
 //
-// What bounds it: not bytes (a ray is 7 floats in and 4 out, the table a few
-// KB). The work is rays x slots x (num_steps + 7) pairs, each a sqrt and an
-// exp with ~12-20 FP32 operations around them; the full-precision sqrtf and
-// expf are several instructions each, so the FP32 issue rate binds before
-// the SFU. Tiles of 1,024 rays and more leave most of the 132 SMs idle at
-// 16,384 rays (16 blocks or fewer): the sweep shows what that costs.
+// The table: prim [4, M] rows (cx, cy, cz, r) and c_sq [1, M] are staged
+// into the core's layout, float4 (-2cx, -2cy, -2cz, c_sq) + r k. A slot is
+// masked when c_sq >= 1e29 (the wrappers write 1e30), under COORD when its
+// center's |c|^2 is (the script's masked centers sit at 1e15: COORD reads no
+// c_sq, so the mask must come from the centers); the march stops at the
+// last live column. Up to MS_CHUNK = 1,024 live columns are staged once per
+// block, more chunk by chunk, so there is no slot cap.
+//
+// The launch shape is K1's, not the TPU tile's: 8 warps a block, a grid over
+// all rays. The TPU's tile_n is a step of its sequential grid; here the
+// wrapper only checks that it divides the rays (the TPU grid n // tile_n
+// drops a remainder) and a ray's arithmetic does not depend on it, so every
+// tile_n gives the same bits and the same time.
+//
+// What bounds it: K1's bound (common.cuh): not bytes, but rays x live slots
+// x (num_steps + 7) pairs, one SFU sqrt and one SFU exp each, with the
+// issue slots of the FP32 work around them binding first.
 #include "common.cuh"
 
-#define MV_LANES 8
-#define MV_MAX_THREADS 1024
-#define MV_MAX_SMEM 49152
-#define MV_LOG2E 1.4426950408889634f
-#define MV_LN2 0.6931471805599453f
+// K5's table: the global [4, m] rows (cx, cy, cz, r) and [m] c_sq, and the
+// scale k (k log2 e under EXP2) that the staged r is multiplied by.
+template <bool COORD>
+struct VariantTable : StagedColumns {
+  const float* __restrict__ prim;
+  const float* __restrict__ c_sq;
+  int m;
+  float k;
 
-template <bool EXP2>
-__device__ __forceinline__ float mv_exp(float x) {
-  return EXP2 ? exp2f(x * MV_LOG2E) : expf(x);
-}
-
-template <bool EXP2>
-__device__ __forceinline__ float mv_log(float x) {
-  return EXP2 ? log2f(x) * MV_LN2 : logf(x);
-}
-
-// Soft-min of one point against the staged table, by the MV_LANES lanes of
-// a group (lane g takes slots g, g + MV_LANES, ...); every lane of the
-// group returns the same value.
-template <bool CLAMP, bool EXP2, bool COORD>
-__device__ __forceinline__ float mv_softmin(const float4* __restrict__ cq,
-                                            const float* __restrict__ kr,
-                                            int m, int g, float px, float py,
-                                            float pz, float k) {
-  const float psq = sq_norm3(px, py, pz);
-  float mx = -INFINITY, s = 0.0f;
-  for (int j = g; j < m; j += MV_LANES) {
-    const float4 c = cq[j];
-    float q;
-    if (COORD) {
-      const float dx = px - c.x, dy = py - c.y, dz = pz - c.z;
-      q = fmaxf((dx * dx + dy * dy) + dz * dz, 1e-6f);
-    } else {
-      q = fmaxf((psq + c.w) - 2.0f * fmaf(px, c.x, fmaf(py, c.y, pz * c.z)),
-                1e-6f);
-    }
-    const float v = sqrtf(q) * (-k) + kr[j];
-    if (CLAMP) {
-      s += mv_exp<EXP2>(fminf(v, 80.0f));
-    } else {
-      // Running max mx and s = sum exp(v_i - mx): a slot that raises the
-      // max rescales s by exp(mx_old - v) and adds 1.
-      const float d = v - mx;
-      const float e = mv_exp<EXP2>(-fabsf(d));
-      s = d > 0.0f ? fmaf(s, e, 1.0f) : s + e;
-      mx = fmaxf(mx, v);
-    }
+  __device__ __forceinline__ bool live(int j) const {
+    return (COORD ? sq_norm3(prim[j], prim[m + j], prim[2 * m + j])
+                  : c_sq[j]) < MARCH_MASKED_CSQ;
   }
-  if (CLAMP) {
-    const float sum = group_sum<MV_LANES>(s);
-    return mv_log<EXP2>(fmaxf(sum, 1e-8f)) / (-k);
-  }
-  const float gmx = group_max<MV_LANES>(mx);
-  // A lane that saw no slot holds (-inf, 0) and adds 0 * exp(-inf) = 0.
-  const float sum = group_sum<MV_LANES>(s * mv_exp<EXP2>(mx - gmx));
-  return (mv_log<EXP2>(fmaxf(sum, 1e-8f)) + gmx) / (-k);
-}
 
-template <bool CLAMP, bool EXP2, bool COORD>
-__global__ void __launch_bounds__(MV_MAX_THREADS)
+  // MarchTable::stage for K5's layout: bitwise the same staged values as
+  // K1's table gives (-2c is exact, r k one rounding as in K1's pack).
+  __device__ __forceinline__ void stage(int c0, int len) const {
+    __syncthreads();
+    for (int i = threadIdx.x; i < len; i += blockDim.x) {
+      const int j = c0 + i;
+      cq[i] = make_float4(-2.0f * prim[j], -2.0f * prim[m + j],
+                          -2.0f * prim[2 * m + j], c_sq[j]);
+      rr[i] = prim[3 * m + j] * k;
+    }
+    __syncthreads();
+  }
+};
+
+template <int L, bool CLAMP, bool EXP2, bool COORD>
+__global__ void __launch_bounds__(MS_WARPS * 32)
 march_variants_kernel(const float* __restrict__ ro,
                       const float* __restrict__ rd,
                       const float* __restrict__ t0,
                       const float* __restrict__ prim,
                       const float* __restrict__ c_sq,
-                      const float* __restrict__ kp, int m, int tile_n,
+                      const float* __restrict__ kp, int n, int m,
                       int num_steps, float eps, float* __restrict__ t_out,
                       float* __restrict__ n_out) {
-  extern __shared__ float4 smem[];
-  float4* cq = smem;
-  float* kr = reinterpret_cast<float*>(smem + m);
-  const float k = __ldg(kp);
-  for (int j = threadIdx.x; j < m; j += blockDim.x) {
-    cq[j] = make_float4(prim[j], prim[m + j], prim[2 * m + j], c_sq[j]);
-    kr[j] = prim[3 * m + j] * k;
-  }
-  __syncthreads();
-
-  const int groups = blockDim.x / MV_LANES;
-  const int group = threadIdx.x / MV_LANES;
-  const int g = threadIdx.x % MV_LANES;
-  const size_t first = (size_t)blockIdx.x * tile_n;
-  for (int r0 = 0; r0 < tile_n; r0 += groups) {
-    const int r = r0 + group;
-    const bool store = r < tile_n;
-    const size_t ray = first + (size_t)(store ? r : tile_n - 1);
-    const float ox = ro[3 * ray], oy = ro[3 * ray + 1], oz = ro[3 * ray + 2];
-    const float dx = rd[3 * ray], dy = rd[3 * ray + 1], dz = rd[3 * ray + 2];
-    float t = t0[ray];
-    for (int it = 0; it < num_steps; ++it) {
-      const float d = mv_softmin<CLAMP, EXP2, COORD>(
-          cq, kr, m, g, ox + dx * t, oy + dy * t, oz + dz * t, k);
-      t = fminf(t + d, MARCH_T_MAX);
-    }
-    const float d_last = mv_softmin<CLAMP, EXP2, COORD>(
-        cq, kr, m, g, ox + dx * t, oy + dy * t, oz + dz * t, k);
-    const float tf = t + d_last;
-    const float fx = ox + dx * tf, fy = oy + dy * tf, fz = oz + dz * tf;
-    float nrm[3];
-#pragma unroll
-    for (int axis = 0; axis < 3; ++axis) {
-      float tap[2];
-#pragma unroll
-      for (int sign = 0; sign < 2; ++sign) {
-        const float h = sign == 0 ? eps : -eps;
-        tap[sign] = mv_softmin<CLAMP, EXP2, COORD>(
-            cq, kr, m, g, axis == 0 ? fx + h : fx, axis == 1 ? fy + h : fy,
-            axis == 2 ? fz + h : fz, k);
-      }
-      nrm[axis] = tap[0] - tap[1];
-    }
-    if (store && g == 0) {
-      const float len = sqrtf(sq_norm3(nrm[0], nrm[1], nrm[2]) + 1e-6f);
-      t_out[ray] = t;
-      n_out[3 * ray] = nrm[0] / len;
-      n_out[3 * ray + 1] = nrm[1] / len;
-      n_out[3 * ray + 2] = nrm[2] / len;
-    }
-  }
+  const float k = EXP2 ? __ldg(kp) * MARCH_LOG2E : __ldg(kp);
+  VariantTable<COORD> tab;
+  tab.prim = prim;
+  tab.c_sq = c_sq;
+  tab.m = m;
+  tab.k = k;
+  dense_march<L, false, CLAMP, EXP2, COORD>(tab, m, ro, rd, t0, n, k,
+                                            num_steps, eps, t_out, n_out);
 }
 
 template <bool CLAMP, bool EXP2, bool COORD>
 static int launch_variant(const float* ro, const float* rd, const float* t0,
                           const float* prim, const float* c_sq,
-                          const float* k, int n, int m, int tile_n,
-                          int num_steps, float eps, float* t_out,
-                          float* n_out, cudaStream_t stream) {
-  const int groups = tile_n < MV_MAX_THREADS / MV_LANES
-                         ? tile_n
-                         : MV_MAX_THREADS / MV_LANES;
-  const int threads = (groups * MV_LANES + 31) / 32 * 32;
-  const size_t smem = (size_t)m * (sizeof(float4) + sizeof(float));
-  march_variants_kernel<CLAMP, EXP2, COORD>
-      <<<n / tile_n, threads, smem, stream>>>(ro, rd, t0, prim, c_sq, k, m,
-                                              tile_n, num_steps, eps, t_out,
-                                              n_out);
+                          const float* k, int n, int m, int num_steps,
+                          float eps, float* t_out, float* n_out,
+                          cudaStream_t stream) {
+#define MV_CASE(L)                                                          \
+  case L:                                                                   \
+    march_variants_kernel<L, CLAMP, EXP2, COORD>                            \
+        <<<dense_blocks(n, L), MS_WARPS * 32, 0, stream>>>(                 \
+            ro, rd, t0, prim, c_sq, k, n, m, num_steps, eps, t_out, n_out); \
+    break
+  switch (pick_lanes(n, m)) {
+    MV_CASE(1);
+    MV_CASE(2);
+    MV_CASE(4);
+    MV_CASE(8);
+    MV_CASE(16);
+    MV_CASE(32);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef MV_CASE
   return (int)cudaGetLastError();
 }
 
 // ro, rd [n,3]; t0 [n]; prim [4,m] rows (cx, cy, cz, r); c_sq [m]; k [1] the
-// soft-min sharpness in device memory, read when the kernel runs. tile_n
-// must divide n. Writes t_out [n], n_out [n,3]. Returns a CUDA error code.
+// soft-min sharpness in device memory, read when the kernel runs. Writes
+// t_out [n], n_out [n,3]. Returns a CUDA error code.
 extern "C" int march_variants_launch(const float* ro, const float* rd,
                                      const float* t0, const float* prim,
                                      const float* c_sq, const float* k, int n,
-                                     int m, int tile_n, int num_steps,
-                                     float eps, int clamp, int exp2,
-                                     int coord, float* t_out, float* n_out,
+                                     int m, int num_steps, float eps,
+                                     int clamp, int exp2, int coord,
+                                     float* t_out, float* n_out,
                                      void* stream) {
-  if (n < 1 || m < 1 || tile_n < 1 || n % tile_n != 0 || num_steps < 0 ||
-      (size_t)m * (sizeof(float4) + sizeof(float)) > MV_MAX_SMEM)
-    return (int)cudaErrorInvalidValue;
+  if (n < 1 || m < 1 || num_steps < 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-#define MV_CASE(C, E, X)                                                     \
+#define MV_FLAGS(C, E, X)                                                    \
   case (C) * 4 + (E) * 2 + (X):                                              \
-    return launch_variant<C, E, X>(ro, rd, t0, prim, c_sq, k, n, m, tile_n,  \
+    return launch_variant<C, E, X>(ro, rd, t0, prim, c_sq, k, n, m,          \
                                    num_steps, eps, t_out, n_out, s)
   switch ((clamp != 0) * 4 + (exp2 != 0) * 2 + (coord != 0)) {
-    MV_CASE(false, false, false);
-    MV_CASE(false, false, true);
-    MV_CASE(false, true, false);
-    MV_CASE(false, true, true);
-    MV_CASE(true, false, false);
-    MV_CASE(true, false, true);
-    MV_CASE(true, true, false);
-    MV_CASE(true, true, true);
+    MV_FLAGS(false, false, false);
+    MV_FLAGS(false, false, true);
+    MV_FLAGS(false, true, false);
+    MV_FLAGS(false, true, true);
+    MV_FLAGS(true, false, false);
+    MV_FLAGS(true, false, true);
+    MV_FLAGS(true, true, false);
+    MV_FLAGS(true, true, true);
   }
-#undef MV_CASE
+#undef MV_FLAGS
   return (int)cudaErrorInvalidValue;
 }

@@ -5,14 +5,17 @@ scripts/exp_march_variants.py::variant_march).
 tensors and runs ``variant_march_plain`` for CPU tensors. There is no
 fallback: a CUDA tensor either goes through the kernel or raises. The plain
 version mirrors the TPU kernel op for op (the two-pass row max and sum,
-``torch.exp`` / ``torch.exp2``, ``torch.log`` / ``torch.log2``); the CUDA
-kernel takes the row max in one pass (online soft-min), so the two agree
-within a tolerance, not bitwise.
+``torch.exp`` / ``torch.exp2``, ``torch.log`` / ``torch.log2``). The CUDA
+kernel is K1's march (csrc/common.cuh's dense_march: the one-pass soft-min
+with the SFU's approximate sqrt and exp), so its ``base`` equals K1 bitwise
+on the same table and agrees with the plain version within the float32
+noise of the march, not bitwise.
 
-The three switches (``clamp``, ``exp2``, ``coord``) are csrc/march_variants.cu's
-template flags; the header comment there says what each computes. The TPU
+The three switches (``clamp``, ``exp2``, ``coord``) are template flags of the
+march core; csrc/march_variants.cu's header says what each computes. The TPU
 kernel's grid is ``n // tile_n`` and drops a remainder of rays; here a
-``tile_n`` that does not divide the ray count raises.
+``tile_n`` that does not divide the ray count raises, and otherwise it
+changes nothing: the launch covers all rays with K1's blocks.
 """
 
 from __future__ import annotations
@@ -32,16 +35,14 @@ T_MAX = 1e4
 NORMAL_EPS = 1e-4
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
-# Shared memory of one block: 20 bytes a slot (MV_MAX_SMEM in the source).
-MAX_SLOTS = 49152 // 20
 
 
 @functools.cache
 def _launcher():
     return build.bind(build.load_library("march_variants"),
                       "march_variants_launch",
-                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
-                       _I, _P, _P, _P])
+                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I,
+                       _P, _P, _P])
 
 
 def check_tile(n: int, tile_n: int) -> None:
@@ -120,7 +121,8 @@ def variant_march(ro: torch.Tensor, rd: torch.Tensor, t0: torch.Tensor,
     ro, rd [N, 3]; t0 [N, 1]; prim [4, M] rows (cx, cy, cz, r); c_sq [1, M]
     (1e30 in masked slots; ``coord`` reads the centers instead, so masked
     slots there need far centers); k a [1, 1] float32 tensor on the rays'
-    device or a Python float. ``tile_n`` rays a block; it must divide N.
+    device or a Python float. ``tile_n``: the TPU kernel's rays a grid
+    step; it must divide N, and the CUDA launch does not depend on it.
     """
     n = ro.shape[0]
     check_tile(n, tile_n)
@@ -136,9 +138,8 @@ def variant_march(ro: torch.Tensor, rd: torch.Tensor, t0: torch.Tensor,
     build.check_cuda_f32("t0", t0, (n, 1), dev)
     build.check_cuda_f32("prim", prim, (4, m), dev)
     build.check_cuda_f32("c_sq", c_sq, (1, m), dev)
-    if not 1 <= m <= MAX_SLOTS:
-        raise ValueError(f"variant_march takes 1 to {MAX_SLOTS} slots, got "
-                         f"{m}")
+    if m < 1:
+        raise ValueError("variant_march needs at least one slot")
     if num_steps < 0:
         raise ValueError(f"num_steps must be >= 0, got {num_steps}")
     k_dev = build.device_scalar(k, dev)
@@ -146,7 +147,7 @@ def variant_march(ro: torch.Tensor, rd: torch.Tensor, t0: torch.Tensor,
     normal = torch.empty((n, 3), dtype=torch.float32, device=dev)
     err = _launcher()(build.ptr(ro), build.ptr(rd), build.ptr(t0),
                       build.ptr(prim), build.ptr(c_sq), build.ptr(k_dev), n,
-                      m, int(tile_n), int(num_steps), NORMAL_EPS,
+                      m, int(num_steps), NORMAL_EPS,
                       int(bool(clamp)), int(bool(exp2)), int(bool(coord)),
                       build.ptr(t), build.ptr(normal), build.stream_ptr(dev))
     build.check(err, "march_variants kernel launch")

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Times the four hand-written kernels (K1 dense march, K2 shade, K3
-culled march, K4 cluster repulsion) of another tree beside this one's, on
-one GPU.
+"""Times the hand-written kernels (K1 dense march, K2 shade, K3 culled
+march, K4 cluster repulsion, K5 march variants) of another tree beside this
+one's, on one GPU.
 
 chip_smoke.py measures this tree's kernels; to compare two commits the old
 one has to run in the same call on the same card. This script takes its
@@ -19,14 +19,18 @@ tiles, 8,192 live columns), and the config-4 shape with every slot live (no
 imbalance between tiles); K2 (``shade_fused``) at 100 live of 128 slots and
 10 of 16, forward alone and forward + backward through autograd; K4
 (``repulsion_sum``) at C = 80 and C = 800, member and monopole, the same
-way. Per case one JSON line: ``ms`` (the wrapper call between CUDA events),
-``device_ms`` (the same call replayed from a CUDA graph) and the errors
-against the plain float32 version (K1, K3: also both versions' gaps to the
-same march in float64, chip_smoke.float64_gaps; K1: also a digest of the
-output's bits, equal between two trees whose kernels agree bitwise). For K2 and K4
+way; K5 (``variant_march``, in trees that have it) in its eight variants at
+the variant tool's shape (16,384 rays, 100 live of 128 slots) with
+chip_smoke's phase-17 block size, 40 and 16 steps. Per case one JSON line:
+``ms`` (the wrapper call between CUDA events), ``device_ms`` (the same call
+replayed from a CUDA graph) and the errors against the plain float32
+version (K1, K3, K5: also both versions' gaps to the same march in float64,
+chip_smoke.float64_gaps, and ``output_sha256``, a digest of the output's
+bits, equal between two trees whose kernels agree bitwise). For K2 and K4
 ``bwd_device_ms`` is forward + backward less the forward. ``--only`` picks
-kernels, ``--out`` appends the lines to a file as well. The first line is
-the launch of an empty kernel timed the same way, where the tree has one.
+kernels (default K1-K4), ``--out`` appends the lines to a file as well. The
+first line is the launch of an empty kernel timed the same way, where the
+tree has one.
 """
 
 from __future__ import annotations
@@ -56,6 +60,13 @@ def measure(torch, cs, kernel, plain, args, kw) -> tuple[dict, object]:
             "device_ms": cs.graph_ms(torch, lambda: kernel(*args, **kw)),
             "kernel_vs_plain": cs.march_errors(torch, t_k, n_k, t_p, n_p),
             **cs.float64_gaps(torch, t_k, n_k, t_p, n_p, t_64, n_64)}, t_p
+
+
+def digest(t, n) -> str:
+    """A digest of a march's output bits: two trees whose digests agree
+    compute bitwise the same t and normals."""
+    return hashlib.sha256(t.cpu().numpy().tobytes()
+                          + n.cpu().numpy().tobytes()).hexdigest()[:16]
 
 
 def fwd_bwd(torch, cs, fn, leaves, cot, plain) -> dict:
@@ -177,6 +188,8 @@ def run(root: str, only: tuple) -> list[dict]:
         rows += run_k1(torch, cs, dev, tag)
     if "K3" in only:
         rows += run_k3(torch, cs, dev, tag)
+    if "K5" in only:
+        rows += run_k5(torch, cs, dev, tag)
     return rows
 
 
@@ -194,12 +207,8 @@ def run_k1(torch, cs, dev, tag) -> list[dict]:
         mask = torch.arange(slots, device=dev) < live
         res, _ = measure(torch, cs, k1.march_shade, k1.march_shade_plain,
                          (ro, rd, c, r, K1_K), dict(mask=mask))
-        # A digest of the kernel's output bits: two trees whose digests
-        # agree compute bitwise the same t and normals.
-        t_k, n_k = k1.march_shade(ro, rd, c, r, K1_K, mask=mask)
-        res["output_sha256"] = hashlib.sha256(
-            t_k.cpu().numpy().tobytes()
-            + n_k.cpu().numpy().tobytes()).hexdigest()[:16]
+        res["output_sha256"] = digest(*k1.march_shade(ro, rd, c, r, K1_K,
+                                                      mask=mask))
         rows.append({"kernel": "K1", "case": f"cold M={slots} live={live}",
                      **res, **tag})
     return rows
@@ -216,9 +225,11 @@ def run_k3(torch, cs, dev, tag) -> list[dict]:
     args, stats = cs.c4_tiles(torch, dev, c, r, mask)
     t_init = None
     for label, steps in (("cold", 40), ("warm16", 16)):
+        kw = dict(num_steps=steps, t_init=t_init)
         res, t_p = measure(torch, cs, k3.culled_march_normals,
-                           culled_march_normals_xla, (*args, cs.C4_K),
-                           dict(num_steps=steps, t_init=t_init))
+                           culled_march_normals_xla, (*args, cs.C4_K), kw)
+        res["output_sha256"] = digest(*k3.culled_march_normals(
+            *args, cs.C4_K, **kw))
         rows.append({"kernel": "K3", "case": f"{label} K={cs.C4_BUDGET}",
                      **stats, **res, **tag})
         t_init = (t_p * 0.8).contiguous()
@@ -227,6 +238,8 @@ def run_k3(torch, cs, dev, tag) -> list[dict]:
     res, _ = measure(torch, cs, k3.culled_march_normals,
                      culled_march_normals_xla, (*ch_args, cs.C4_K),
                      dict(num_steps=16))
+    res["output_sha256"] = digest(*k3.culled_march_normals(
+        *ch_args, cs.C4_K, num_steps=16))
     rows.append({"kernel": "K3",
                  "case": f"chunked warm-length K={cs.CHUNKED_K}",
                  **res, **tag})
@@ -240,9 +253,39 @@ def run_k3(torch, cs, dev, tag) -> list[dict]:
                      culled_march_normals_xla,
                      (args[0], args[1], *full, cs.C4_K),
                      dict(num_steps=16, t_init=t_init))
+    res["output_sha256"] = digest(*k3.culled_march_normals(
+        args[0], args[1], *full, cs.C4_K, num_steps=16, t_init=t_init))
     rows.append({"kernel": "K3",
                  "case": f"warm16 K={cs.C4_BUDGET} all slots live",
                  **res, **tag})
+    return rows
+
+
+def run_k5(torch, cs, dev, tag) -> list[dict]:
+    from burn_raymarching_tpu_torch.ops.cuda import (
+        march_variants_kernel as k5,
+    )
+    from burn_raymarching_tpu_torch.tools import exp_march_variants as emv
+
+    rows = []
+    inp = emv.make_inputs(128, dev)
+    for name, flags in emv.VARIANTS.items():
+        args = (inp["ro"], inp["rd"], inp["t0"],
+                inp["prim_far"] if flags[2] else inp["prim"], inp["c_sq"],
+                inp["k_arr"])
+        for steps in (cs.VARIANT_STEPS, emv.TIME_STEPS):
+            tail = (steps, cs.VARIANT_TILE, *flags)
+
+            def kernel(*a, tail=tail):
+                return k5.variant_march(*a, *tail)
+
+            def plain(*a, tail=tail):
+                return k5.variant_march_plain(*a, *tail)
+
+            res, _ = measure(torch, cs, kernel, plain, args, {})
+            res["output_sha256"] = digest(*kernel(*args))
+            rows.append({"kernel": "K5", "case": f"{name} {steps} steps",
+                         **res, **tag})
     return rows
 
 

@@ -14,17 +14,22 @@ centers instead, so theirs sit at 1e15. Three tables:
   2. each other variant's deviation from base at 40 steps: p50 / p99 /
      max of |dt| and p99 / max of the normals' |dn|;
   3. the device time of one 16-step march + normals for each variant and
-     block size (``tile_n`` rays a block: TILES, those that divide the
-     rays), read as 100 chained launches replayed from one captured CUDA
-     graph (the script's lax.scan of 100), best of ``--reps``, with the
-     card's name and power limit on every line.
+     ``tile_n`` (TILES, those that divide the rays), read as 100 chained
+     launches replayed from one captured CUDA graph (the script's lax.scan
+     of 100), best of ``--reps``, with the card's name and power limit on
+     every line.
 
-Tables 1 and 2 run 1,024 rays a block, as the script's do (fewer when that
+Tables 1 and 2 run ``tile_n`` = 1,024, as the script's do (fewer when that
 does not divide the rays).
 
-The variants: base, exp2, coord and exp2+coord, as the script times them,
-and the four clamp variants beside them (the script's note: wrong on far
-rays, whose sum underflows to the 1e-8 floor).
+K5 is K1's march (its ``base`` gives K1's bits on K1's table), so the
+variants read as deltas on the shipped kernel, as the script's did on the
+TPU: base, exp2 (log2(e) folded into the scale: the per-pair exp loses its
+multiply), coord and exp2+coord, as the script times them, and the four
+clamp variants beside them (the script's note: wrong on far rays, whose
+sum underflows to the 1e-8 floor). ``tile_n`` was the TPU grid's step; the
+CUDA launch covers all rays with K1's blocks whatever it is, so table 3's
+columns differ by the timing's noise alone.
 
 Usage (the card):
   python -m burn_raymarching_tpu_torch.tools.exp_march_variants [--out FILE]

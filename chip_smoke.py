@@ -185,7 +185,11 @@ non-zero without the final result line:
                    build_clusters, each called without a device, must
                    return tensors on the card;
  17. variants    — K5 (csrc/march_variants.cu, the port of
-                   scripts/exp_march_variants.py::variant_march) against its
+                   scripts/exp_march_variants.py::variant_march, on K1's
+                   march core) first against K1 on one table (K1's pack of
+                   the tool's scene, 40 steps): its base must give K1's t
+                   and normals bitwise, and both are timed in turn (device
+                   ms, their ratio); then against its
                    plain version in all eight clamp / exp2 / coord
                    combinations at the variant tool's shape (16,384 rays,
                    100 live of 128 slots, 40 steps, 128 rays a block):
@@ -3101,8 +3105,51 @@ def variant_case(torch, k5, inp: dict, name: str, flags: tuple,
     return out
 
 
+def variant_vs_k1(torch, k5, inp: dict, failures: list) -> dict:
+    """K5's base against K1 on one table: K1's pack of the tool's scene,
+    K5's centers from the pack's columns 0-2 and c_sq from its column 3,
+    the radii as given; VARIANT_STEPS steps from t = 0. The base variant is
+    K1's march, so the two must agree bitwise. Device ms of each (K1's
+    wrapper packs its table first, one launch of ~0.001 ms), timed in
+    turns K1, K5, K5, K1, and the ratio of their medians."""
+    from burn_raymarching_tpu_torch.ops.cuda import march_shade_kernel as k1
+
+    ro, rd, c, r, mask = (inp[key] for key in ("ro", "rd", "centers",
+                                               "radii", "mask"))
+    k = inp["k_arr"]
+    table = k1.pack_march_table(c, r, mask, k)
+    args = (ro, rd, inp["t0"], torch.cat([table[:, :3].T, r.reshape(1, -1)])
+            .contiguous(), table[:, 3:4].T.contiguous(), k, VARIANT_STEPS,
+            VARIANT_TILE, False, False, False)
+
+    def run_k1():
+        return k1.march_shade(ro, rd, c, r, k, mask=mask,
+                              num_steps=VARIANT_STEPS)
+
+    t_5, n_5 = k5.variant_march(*args)
+    t_1, n_1 = run_k1()
+    bitwise = bool(torch.equal(t_5, t_1) and torch.equal(n_5, n_1))
+    if not bitwise:
+        failures.append("K5 base differs from K1 on the same table")
+    times = {"k1": [], "k5": []}
+    for who in ("k1", "k5", "k5", "k1"):
+        times[who].append(graph_ms(torch, run_k1 if who == "k1" else (
+            lambda: k5.variant_march(*args))))
+    k1_ms, k5_ms = (statistics.median(times[w]) for w in ("k1", "k5"))
+    out = {"bitwise": bitwise,
+           "max_abs_dt": (t_5 - t_1).abs().max().item(),
+           "max_abs_dn": (n_5 - n_1).abs().max().item(),
+           "k5_device_ms": k5_ms, "k1_device_ms": k1_ms,
+           "k5_device_ms_runs": times["k5"], "k1_device_ms_runs": times["k1"],
+           "ratio": k5_ms / k1_ms}
+    emit("k5_vs_k1", rays=ro.shape[0], slots=c.shape[0],
+         live=int(mask.sum()), steps=VARIANT_STEPS, **out)
+    return out
+
+
 def phase_variants(torch, dev) -> tuple[dict, dict]:
-    """K5 against its plain version in all eight flag combinations, then
+    """K5's base against K1 on one table (``variant_vs_k1``), K5 against
+    its plain version in all eight flag combinations, then
     the two march tools' main at full size (tools/exp_march_variants.py:
     16,384 rays, 128 slots, its three tables over every variant and block
     size; tools/roofline.py: 16,384 rays, 200 chained iterations) with
@@ -3114,6 +3161,7 @@ def phase_variants(torch, dev) -> tuple[dict, dict]:
 
     inp = emv.make_inputs(128, dev)
     failures = []
+    vs_k1 = variant_vs_k1(torch, k5, inp, failures)
     cases = {name: variant_case(torch, k5, inp, name, flags, failures)
              for name, flags in emv.VARIANTS.items()}
     if failures:
@@ -3151,7 +3199,7 @@ def phase_variants(torch, dev) -> tuple[dict, dict]:
     row = dict(max_abs_err=cases["base"]["errors"]["max_abs_err_t_hit"],
                **{key: cases["base"][key] for key in (
                    "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
-               library_ms=None, tile_n=VARIANT_TILE,
+               library_ms=None, tile_n=VARIANT_TILE, vs_k1=vs_k1,
                variants={name: {
                    "max_abs_err_t_hit": c["errors"]["max_abs_err_t_hit"],
                    "max_abs_err_normal_hit":

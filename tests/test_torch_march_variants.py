@@ -17,10 +17,16 @@ are still short of the surface: there |d| of the central difference
 adds, so the normal is ~1,000 d, and the soft-min's float32 rounding
 (~1e-7 of values up to ~1) becomes ~1e-3 (on this input the plain float32
 march is 1.6e-3 from float64 in the normals, the JAX one 2.0e-3).
-The CUDA kernel is held against the plain version by the cuda-marked test
-(run on a GPU: ``pytest -m cuda tests/test_torch_march_variants.py``); the
-CPU test of the one-pass soft-min holds the arithmetic the kernel uses in
-place of the two-pass row max.
+The CUDA kernel (K1's march core with the three switches) is held on the
+card by the cuda-marked tests (``pytest -m cuda
+tests/test_torch_march_variants.py``): against the plain version within 5x
+the plain float32 version's own gap to the same march in float64, plus
+1e-5 (chip_smoke.march_noise_tols, the rule for K1, K3 and K5: the SFU's
+approximate sqrt and exp move t on hit rays by ~1e-3 at 40 steps, as they
+move K1), bitwise equal across tile sizes, ``base`` bitwise equal to K1 on
+the same table, and past one staged chunk of slots. The CPU test of the
+one-pass soft-min holds the arithmetic the kernel uses in place of the
+two-pass row max, at every lane count the launch rule can pick.
 """
 
 import importlib.util
@@ -38,6 +44,7 @@ from burn_raymarching_tpu.models.scene import activate as j_activate
 from burn_raymarching_tpu.models.scene import init_scene_params as j_init
 from burn_raymarching_tpu.models.scene import pad_params as j_pad
 from burn_raymarching_tpu_torch.data.camera import create_camera_rays
+from burn_raymarching_tpu_torch.ops.cuda import march_shade_kernel as k1
 from burn_raymarching_tpu_torch.ops.cuda import march_variants_kernel as k5
 from burn_raymarching_tpu_torch.tools import exp_march_variants, roofline
 
@@ -49,6 +56,8 @@ IDS = ["+".join(name for name, on in zip(("clamp", "exp2", "coord"), flags)
               if on) or "base" for flags in FLAGS]
 T_TOL = 1e-5
 NORMAL_ATOL = 1e-3
+# The lane counts the kernel's launch rule (common.cuh pick_lanes) picks.
+LANES = (1, 2, 4, 8, 16, 32)
 
 
 @pytest.fixture(scope="module")
@@ -128,20 +137,28 @@ def test_tile_must_divide_the_rays(inputs):
         k5.variant_march_plain(*args, STEPS, 0, False, False, False)
 
 
-def _online(val: torch.Tensor, clamp: bool, exp2: bool, k: float,
-            lanes: int = 8) -> torch.Tensor:
-    """csrc/march_variants.cu's mv_softmin in plain PyTorch, from the
-    per-pair val [N, M]: ``lanes`` lanes stride over the slots; clamp sums
-    exp(min(val, 80)); otherwise each lane keeps a running max and a sum
-    relative to it, merged by the overall max."""
-    ex = ((lambda x: torch.exp2(x * k5.LOG2E)) if exp2 else torch.exp)
-    lg = ((lambda x: torch.log2(x) * k5.LN2) if exp2 else torch.log)
+def _online(sqrt_q: torch.Tensor, r: torch.Tensor, clamp: bool, exp2: bool,
+            k: float, lanes: int) -> torch.Tensor:
+    """The soft-min of csrc/common.cuh's march core as K5 runs it, in plain
+    PyTorch, from sqrt(q) [N, M] and the radii [1, M]: per pair v = sqrt(q)
+    (-k) + r k, with k log2(e) in place of k under exp2 (the kernel folds
+    it into the scale, so v, the max and the sum are in base 2); ``lanes``
+    lanes stride over the slots; clamp sums 2^min(v, 80 log2 e) (exp(min(v,
+    80))) per lane; otherwise each lane keeps a running max and a sum
+    relative to it; the lanes are merged by the overall max."""
+    if exp2:
+        k = float(torch.tensor(k) * torch.tensor(k5.LOG2E))
+    val = sqrt_q * (-k) + r * k
+    ex, lg = (torch.exp2, torch.log2) if exp2 else (torch.exp, torch.log)
     n, m_cols = val.shape
+    s = torch.zeros((n, lanes), dtype=val.dtype)
     if clamp:
-        total = ex(torch.clamp(val, max=80.0)).sum(1, keepdim=True)
+        ceiling = 80.0 * k5.LOG2E if exp2 else 80.0
+        for j in range(m_cols):
+            s[:, j % lanes] += ex(torch.clamp(val[:, j], max=ceiling))
+        total = s.sum(1, keepdim=True)
         return lg(torch.clamp(total, min=1e-8)) / (-k)
     m = torch.full((n, lanes), -torch.inf, dtype=val.dtype)
-    s = torch.zeros((n, lanes), dtype=val.dtype)
     for j in range(m_cols):
         lane, v = j % lanes, val[:, j]
         d = v - m[:, lane]
@@ -153,12 +170,14 @@ def _online(val: torch.Tensor, clamp: bool, exp2: bool, k: float,
     return (lg(torch.clamp(total, min=1e-8)) + mx) / (-k)
 
 
+@pytest.mark.parametrize("lanes", LANES)
 @pytest.mark.parametrize("flags", FLAGS[:4] + FLAGS[4::2], ids=IDS[:4]
                          + IDS[4::2])
-def test_one_pass_soft_min_matches_two_pass(inputs, flags):
+def test_one_pass_soft_min_matches_two_pass(inputs, flags, lanes):
     """The kernel's one-pass soft-min against the plain two-pass one, on
-    points along the rays from the scene's inside to past it (float32
-    rounding only: rtol 1e-5, atol 1e-6)."""
+    points along the rays from the scene's inside to past it, at every lane
+    count the launch can pick (float32 rounding only: rtol 1e-5, atol
+    1e-6)."""
     clamp, exp2, coord = flags
     prim = tt(inputs["prim_far" if coord else "prim"])
     c_sq = tt(inputs["c_sq"])
@@ -171,9 +190,10 @@ def test_one_pass_soft_min_matches_two_pass(inputs, flags):
         q = ((p[:, None, :] - prim[:3].T[None]) ** 2).sum(-1)
     else:
         q = (p * p).sum(1, keepdim=True) + c_sq - 2.0 * (p @ prim[:3])
-    val = torch.sqrt(torch.clamp(q, min=1e-6)) * (-K) + kr
-    np.testing.assert_allclose(nn(_online(val, clamp, exp2, K)), nn(two),
-                               rtol=1e-5, atol=1e-6)
+    sqrt_q = torch.sqrt(torch.clamp(q, min=1e-6))
+    np.testing.assert_allclose(
+        nn(_online(sqrt_q, prim[3:4], clamp, exp2, K, lanes)), nn(two),
+        rtol=1e-5, atol=1e-6)
 
 
 def test_tool_scene_is_the_scripts(inputs):
@@ -243,24 +263,103 @@ def test_roofline_main_cpu(capsys):
     assert "exp+sqrt stream, 64x128: 40 passes not measured" in lines[1]
 
 
+@pytest.fixture(scope="module")
+def chip_smoke():
+    """chip_smoke.py as a module (its main is not called): the tolerance
+    rule of the march kernels, march_noise_tols."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _hold_to_float64_noise(cs, args, steps, flags, t_k, n_k):
+    """K5's t and normals against the plain version on the same inputs,
+    each within 5x the plain float32 version's own gap to the same march in
+    float64, plus 1e-5 (hit rays, t < 10: t and normals; all rays: t
+    relative to 1 + t)."""
+    t_p, n_p = k5.variant_march_plain(*args, steps, 1, *flags)
+    t_64, n_64 = k5.variant_march_plain(*(a.double() for a in args), steps,
+                                        1, *flags)
+    torch.cuda.synchronize()
+    assert int((t_64[:, 0] < 10.0).sum()) > 20
+    errs = cs.march_errors(torch, t_k, n_k, t_p, n_p)
+    tols = cs.march_noise_tols(torch, t_p, n_p, t_64, n_64)
+    for key, tol in tols.items():
+        assert errs[key] <= tol, (key, errs[key], tols)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("flags", FLAGS, ids=IDS)
-def test_cuda_kernel_matches_plain(inputs, cuda_device, flags):
-    """K5 against its plain version on the card (one launch, counted), and
-    bitwise equal at other tile sizes (a ray's arithmetic does not depend on
-    its block)."""
+def test_cuda_kernel_matches_plain(inputs, cuda_device, chip_smoke, flags):
+    """K5 against its plain version on the card (one launch, counted) under
+    the float64-noise rule, and bitwise equal at other tile sizes (a ray's
+    arithmetic does not depend on its block)."""
     clamp, exp2, coord = flags
     dev = cuda_device
     args = [tt(a).to(dev) for a in _args(inputs, coord)]
     before = k5.variant_march.launches
     t_k, n_k = k5.variant_march(*args, STEPS, TILE, clamp, exp2, coord)
     assert k5.variant_march.launches == before + 1
-    t_p, n_p = k5.variant_march_plain(*args, STEPS, TILE, clamp, exp2, coord)
-    torch.cuda.synchronize()
-    hit = nn(t_p)[:, 0] < 10.0
-    np.testing.assert_allclose(nn(t_k)[hit], nn(t_p)[hit], rtol=1e-4,
-                               atol=1e-4)
-    np.testing.assert_allclose(nn(n_k)[hit], nn(n_p)[hit], atol=2e-3)
+    _hold_to_float64_noise(chip_smoke, args, STEPS, flags, t_k, n_k)
     for tile in (1, 32, 128):
         t_b, n_b = k5.variant_march(*args, STEPS, tile, clamp, exp2, coord)
         assert torch.equal(t_b, t_k) and torch.equal(n_b, n_k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", [M, 128])
+def test_cuda_base_is_k1(inputs, cuda_device, slots):
+    """K5's base on K1's table gives K1's t and normals bit for bit: at the
+    test's 16 slots (128 rays, 16 lanes a ray) and at the tool's 128 (its
+    16,384 rays, 8 lanes). Both read the table K1's pack kernel makes: K5's
+    centers from its columns 0-2, c_sq from column 3, the radii as given."""
+    dev = cuda_device
+    if slots == M:
+        ro, rd = (tt(inputs[key]).to(dev) for key in ("ro", "rd"))
+        prim = tt(inputs["prim"]).to(dev)
+        c, r = prim[:3].T.contiguous(), prim[3:4].T.contiguous()
+        mask = torch.arange(M, device=dev) < LIVE
+    else:
+        inp = exp_march_variants.make_inputs(128, dev)
+        ro, rd, c, r, mask = (inp[key] for key in ("ro", "rd", "centers",
+                                                   "radii", "mask"))
+    table = k1.pack_march_table(c, r, mask, K)
+    prim = torch.cat([table[:, :3].T, r.reshape(1, -1)]).contiguous()
+    c_sq = table[:, 3:4].T.contiguous()
+    t0 = torch.zeros((ro.shape[0], 1), device=dev)
+    t_1, n_1 = k1.march_shade(ro, rd, c, r, K, mask=mask, num_steps=40)
+    t_5, n_5 = k5.variant_march(ro, rd, t0, prim, c_sq, K, 40, 64, False,
+                                False, False)
+    torch.cuda.synchronize()
+    # Some rays hit (8 of the 128 at 16 slots) and some leave the scene.
+    assert 0 < int((t_1[:, 0] < 10.0).sum()) < ro.shape[0]
+    assert torch.equal(t_5, t_1), (t_5 - t_1).abs().max().item()
+    assert torch.equal(n_5, n_1), (n_5 - n_1).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", FLAGS, ids=IDS)
+def test_cuda_chunked_table(inputs, cuda_device, chip_smoke, flags):
+    """3,000 slots (2,870 live, the last live one at 2,899): past the
+    kernel's 1,024-column shared-memory chunk, so the table is staged chunk
+    by chunk in every evaluation; against the plain version under the
+    float64-noise rule, at the test's 128 rays and 8 steps."""
+    clamp, exp2, coord = flags
+    dev = cuda_device
+    rng = np.random.default_rng(17)
+    m = 3000
+    valid = (np.arange(m) < 2900) & (np.arange(m) % 97 != 5)
+    c = rng.normal(0, 0.4, (m, 3)).astype(np.float32)
+    r = (np.log1p(np.exp(rng.normal(-3.5, 0.3, m))) + 0.01).astype(
+        np.float32)
+    c = np.where(valid[:, None], c, 1e15 if coord else 0.0).astype(
+        np.float32)
+    c_sq = np.where(valid, (c * c).sum(1), 1e30)[None].astype(np.float32)
+    args = [tt(a).to(dev) for a in (
+        inputs["ro"], inputs["rd"], inputs["t0"],
+        np.ascontiguousarray(np.concatenate([c.T, r[None]])), c_sq,
+        inputs["k"])]
+    t_k, n_k = k5.variant_march(*args, STEPS, TILE, clamp, exp2, coord)
+    _hold_to_float64_noise(chip_smoke, args, STEPS, flags, t_k, n_k)
