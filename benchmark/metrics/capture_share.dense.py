@@ -1,0 +1,6 @@
+"""capture_share.dense: capture_share.train's reading, in the dense training cell, which
+reports its own end-to-end rate (train_rays_per_s.dense)."""
+
+from benchmark.harness.manifest import metric_reader
+
+read = metric_reader("capture_share.train")

@@ -1,0 +1,6 @@
+"""preview_share.dense: preview_share.train's reading, in the dense training cell, which
+reports its own end-to-end rate (train_rays_per_s.dense)."""
+
+from benchmark.harness.manifest import metric_reader
+
+read = metric_reader("preview_share.train")

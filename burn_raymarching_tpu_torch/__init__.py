@@ -10,7 +10,7 @@ first use and bound with ctypes (``ops/cuda/``).
 Layer map:
   config     — the four configuration dataclasses
   utils/     — padding buckets, Morton pixel orders, metrics logger,
-               profiling (trace, annotate, timed_step, debug_mode), the
+               profiling (trace, annotate and TRACER, debug_mode), the
                device rule (device.resolve_device: the card unless the
                caller names the CPU; no card raises)
   ops/       — SDF math, soft-min, march, culling; ops/cuda: K1 march+normals,

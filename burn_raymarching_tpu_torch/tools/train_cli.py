@@ -8,7 +8,12 @@ for CUDA without a card raises.
 Usage:
   python -m burn_raymarching_tpu_torch.tools.train_cli [--cameras data/cameras.json]
       [--stages 5] [--steps 700] [--batch 16384] [--resume] [--no-pallas]
-      [--device cuda]
+      [--device cuda] [--trace-spans spans.json]
+
+``--trace-spans PATH`` turns the program's tracer on for the job
+(utils/profiling.TRACER: the trainer's, the captured step's and the
+viewer's spans, its counters and each capture's phase map) and writes
+``TRACER.dump(PATH)`` when the job ends.
 
 The large-scene recipe (BASELINE config 4; see tools/run_c5.py):
   ... --width 512 --height 512 --init-layout cloud --init-n 5120
@@ -198,6 +203,9 @@ def make_parser() -> argparse.ArgumentParser:
     add("--refine-temp", dest="refine_temp", type=float, default=0.0)
     add("--refine-fringe", dest="refine_fringe", type=float, default=1.0)
     add("--refine-light", dest="refine_light", type=int, default=0)
+    add("--trace-spans", dest="trace_spans", default="", metavar="PATH",
+        help="keep the program's spans and counters and write them as "
+             "JSON to PATH when the job ends")
     return p
 
 
@@ -213,9 +221,23 @@ def refine_kwargs(args) -> dict:
 def main(argv=None):
     """Train → (trainer, final padded params, mask); with ``--best-of`` the
     winning seed's."""
+    args = make_parser().parse_args(argv)
+    if not args.trace_spans:
+        return train(args)
+    from burn_raymarching_tpu_torch.utils.profiling import TRACER
+
+    TRACER.reset()
+    TRACER.enable()
+    try:
+        return train(args)
+    finally:
+        TRACER.disable()
+        TRACER.dump(args.trace_spans)
+
+
+def train(args):
     import dataclasses
 
-    args = make_parser().parse_args(argv)
     from burn_raymarching_tpu_torch.data.scene_io import export_scene_json
     from burn_raymarching_tpu_torch.train.loop import Trainer, build_dataset
     from burn_raymarching_tpu_torch.utils.device import resolve_device

@@ -34,6 +34,7 @@ import torch
 
 from burn_raymarching_tpu_torch.ops.cuda.march_shade_kernel import march_shade
 from burn_raymarching_tpu_torch.utils.device import resolve_device
+from burn_raymarching_tpu_torch.utils.profiling import annotate
 
 # The smooth-min sharpness both models render with (the viewer shader's
 # k = 32, shader.wgsl:43-61).
@@ -69,21 +70,28 @@ def train_shade(ro, rd, centers, colors, radii, light_dir, ambient,
 def render_pose(scene, eye, target, size, model="viewer", fov=50.0,
                 chunk=16384, device="cuda") -> np.ndarray:
     """One size x size frame of ``scene`` (a loaded scene.json) from ``eye``
-    looking at ``target`` → [size², 3] linear RGB (numpy float32)."""
+    looking at ``target`` → [size², 3] linear RGB (numpy float32). Its
+    spans: ``view.scene_upload``, ``view.rays``, ``view.render`` (the
+    host's enqueue of the march and the tail) and ``view.readback`` (where
+    the host waits for the card)."""
     from burn_raymarching_tpu_torch.data.camera import create_camera_rays
 
     dev = resolve_device(device)
-    params = scene_tensors(scene, dev)
-    ro, rd = create_camera_rays(size, size, eye, target, fov, device=dev)
-    if model == "train":
-        img = train_shade(ro, rd, *params, chunk=chunk)
-    elif model == "viewer":
-        img = torch.cat([_viewer_shade(ro[i:i + chunk], rd[i:i + chunk],
-                                       *params)
-                         for i in range(0, ro.shape[0], chunk)])
-    else:
+    if model not in ("train", "viewer"):
         raise ValueError(f"unknown model {model!r} (viewer or train)")
-    return img.cpu().numpy()
+    with annotate("view.scene_upload"):
+        params = scene_tensors(scene, dev)
+    with annotate("view.rays"):
+        ro, rd = create_camera_rays(size, size, eye, target, fov, device=dev)
+    with annotate("view.render"):
+        if model == "train":
+            img = train_shade(ro, rd, *params, chunk=chunk)
+        else:
+            img = torch.cat([
+                _viewer_shade(ro[i:i + chunk], rd[i:i + chunk], *params)
+                for i in range(0, ro.shape[0], chunk)])
+    with annotate("view.readback"):
+        return img.cpu().numpy()
 
 
 def _map_wgsl(p, centers, radii):

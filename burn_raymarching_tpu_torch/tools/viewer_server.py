@@ -19,12 +19,20 @@ the device at a time; frames are encoded as PNG with the standard library
 Usage:
   python -m burn_raymarching_tpu_torch.tools.viewer_server scene.json
       [--port 8000] [--size 384] [--model viewer|train] [--device cuda]
+      [--trace-spans spans.json]
 then open http://localhost:8000/ (port-forward from the GPU host).
+
+``--trace-spans PATH`` turns the program's tracer on while the server runs
+(utils/profiling.TRACER: each frame's ``view.frame`` span with its
+``view.scene_upload``, ``view.rays``, ``view.render``, ``view.readback`` and
+``view.encode`` children, and the ``frames.low`` / ``frames.full`` counters)
+and writes ``TRACER.dump(PATH)`` when the server stops.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import threading
@@ -110,12 +118,17 @@ class _ViewerState:
         self.model = model
         self.device = device
         self.lock = threading.Lock()
+        self.frame_ids = itertools.count()
 
     def render(self, yaw: float, pitch: float, dist: float,
                center, quality: str = "full") -> bytes:
         from burn_raymarching_tpu_torch.data.image_io import encode_png_rgb
         from burn_raymarching_tpu_torch.tools.viewer_offline import (
             render_pose,
+        )
+        from burn_raymarching_tpu_torch.utils.profiling import (
+            TRACER,
+            annotate,
         )
 
         size = self.low_size if quality == "low" else self.size
@@ -125,11 +138,15 @@ class _ViewerState:
             cy + dist * math.sin(pitch),
             cz - dist * math.cos(pitch) * math.cos(yaw),
         ]
-        with self.lock:  # one device render at a time
-            img = render_pose(self.scene, eye, [cx, cy, cz], size,
-                              model=self.model, device=self.device)
-        u8 = (np.clip(img, 0, 1) ** (1 / 2.2) * 255).astype(np.uint8)
-        return encode_png_rgb(u8.reshape(size, size, 3))
+        TRACER.count(f"frames.{quality}")
+        with annotate("view.frame", frame=next(self.frame_ids),
+                      quality=quality, size=size):
+            with self.lock:  # one device render at a time
+                img = render_pose(self.scene, eye, [cx, cy, cz], size,
+                                  model=self.model, device=self.device)
+            with annotate("view.encode"):
+                u8 = (np.clip(img, 0, 1) ** (1 / 2.2) * 255).astype(np.uint8)
+                return encode_png_rgb(u8.reshape(size, size, 3))
 
 
 def make_handler(state: _ViewerState):
@@ -190,9 +207,15 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; a missing card "
                              "raises)")
+    parser.add_argument("--trace-spans", dest="trace_spans", default="",
+                        metavar="PATH",
+                        help="keep each frame's spans and the frame counts "
+                             "and write them as JSON to PATH when the "
+                             "server stops")
     args = parser.parse_args(argv)
 
     from burn_raymarching_tpu_torch.utils.device import resolve_device
+    from burn_raymarching_tpu_torch.utils.profiling import TRACER
 
     state = _ViewerState(args.scene, args.size, args.model,
                          device=resolve_device(args.device))
@@ -200,12 +223,18 @@ def main(argv=None):
                                  make_handler(state))
     print(f"Serving {args.scene} ({state.scene['num_spheres']} spheres) on "
           f"http://localhost:{args.port}/ — WASD move, arrows orbit")
+    if args.trace_spans:
+        TRACER.reset()
+        TRACER.enable()
     try:
         server.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:
         server.server_close()
+        if args.trace_spans:
+            TRACER.disable()
+            TRACER.dump(args.trace_spans)
 
 
 if __name__ == "__main__":

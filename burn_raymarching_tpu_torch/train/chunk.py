@@ -53,8 +53,14 @@ back to the plain loop.
 
 Launch counts: a replay launches the kernels its capture recorded without
 calling their wrappers, so the runner takes the capture's recordings back
-off the wrappers' counts (ops/cuda/build.COUNTED) and adds them once per
-replay.
+off the wrappers' counts (ops/cuda/build.COUNTED) and adds them, times the
+replays, once per ``run``.
+
+Tracing (utils/profiling): ``trainer.capture`` spans the whole capture and
+``trainer.replay`` one ``run``'s replays; the step's own phases
+(``step.sample`` .. ``step.adam``) run as Python only at capture, where the
+tracer records the graph's phase map; the warm-up step, undone, is not
+traced.
 """
 
 from __future__ import annotations
@@ -66,6 +72,7 @@ import torch
 from burn_raymarching_tpu_torch.models.scene import SceneParams
 from burn_raymarching_tpu_torch.ops.cuda import build
 from burn_raymarching_tpu_torch.train.optimizer import set_group_lrs
+from burn_raymarching_tpu_torch.utils.profiling import TRACER, annotate
 
 
 class ChunkRunner:
@@ -99,6 +106,7 @@ class ChunkRunner:
         self.loss = torch.zeros((), dtype=torch.float32,
                                 device=packed.device)
         self.graph = None
+        self.capture_id = None
         # {wrapper: kernel launches one replay makes}
         self.per_replay: dict = {}
 
@@ -114,15 +122,18 @@ class ChunkRunner:
     def _one(self, idx: Optional[torch.Tensor]) -> None:
         """One whole step: advance the step index, sample, forward, loss,
         backward, learning rates, Adam."""
-        self.step += 1
+        TRACER.count("steps")
+        with annotate("step.sample"):
+            self.step += 1
         loss, lr = self.step_fn(
             self.params, self.generator, self.stage, self.step, self.mask,
             self.packed, self.fg_pool, self.n_fg, idx=idx,
             t_cache=self.t_cache, clusters=self.clusters,
             rep_static=self.rep_static)
-        set_group_lrs(self.opt, lr, self.lr_scales)
-        self.opt.step()
-        self.loss.copy_(loss)
+        with annotate("step.adam"):
+            set_group_lrs(self.opt, lr, self.lr_scales)
+            self.opt.step()
+            self.loss.copy_(loss)
 
     def run(self, first: int, n: int) -> None:
         """Steps ``first`` .. ``first + n - 1`` (1-based within the
@@ -136,13 +147,17 @@ class ChunkRunner:
                              f"scan_unroll = {self.unroll} steps")
         if self.graph is None:
             self._capture(first)
-        for s in range(first, first + n, self.unroll):
-            if self.idx_fn is not None:
-                for i in range(self.unroll):
-                    self.idx[i].copy_(self.idx_fn(s + i))
-            self.graph.replay()
-            for fn, d in self.per_replay.items():
-                fn.launches += d
+        replays = n // self.unroll
+        with annotate("trainer.replay", capture=self.capture_id,
+                      replays=replays):
+            for s in range(first, first + n, self.unroll):
+                if self.idx_fn is not None:
+                    for i in range(self.unroll):
+                        self.idx[i].copy_(self.idx_fn(s + i))
+                self.graph.replay()
+        TRACER.replayed(self.capture_id, replays)
+        for fn, d in self.per_replay.items():
+            fn.launches += d * replays
 
     def snapshot(self) -> dict:
         """Copies of what a step changes."""
@@ -170,6 +185,11 @@ class ChunkRunner:
         self.params.zero_grad(set_to_none=True)
 
     def _capture(self, first: int) -> None:
+        with annotate("trainer.capture") as attrs:
+            self._record(first)
+            attrs["capture"] = self.capture_id
+
+    def _record(self, first: int) -> None:
         dev = self.packed.device
         if self.idx_fn is not None:
             idx0 = self.idx_fn(first)
@@ -179,14 +199,17 @@ class ChunkRunner:
         saved = self.snapshot()
         side = torch.cuda.Stream(device=dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
+        with TRACER.paused(), torch.cuda.stream(side):
             self._one(None if self.idx is None else self.idx[0])
         torch.cuda.current_stream(dev).wait_stream(side)
         self.restore(saved)
+        if TRACER.on:
+            TRACER.device_counter(dev)
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
         before = build.launch_counts()
-        with torch.cuda.graph(graph, stream=side):
+        with torch.cuda.graph(graph, stream=side), \
+                TRACER.capture(side) as self.capture_id:
             for i in range(self.unroll):
                 self._one(None if self.idx is None else self.idx[i])
         after = build.launch_counts()

@@ -120,6 +120,7 @@ from burn_raymarching_tpu_torch.utils import (
     multi_view_morton_permutation,
 )
 from burn_raymarching_tpu_torch.utils.device import resolve_device
+from burn_raymarching_tpu_torch.utils.profiling import TRACER, annotate
 
 
 def build_dataset(cfg: TrainConfig, device: torch.device | str = "cuda"
@@ -455,47 +456,54 @@ class Trainer:
         if chunk % cfg.scan_unroll:
             raise ValueError(f"steps_per_call ({chunk}) must be divisible "
                              f"by scan_unroll ({cfg.scan_unroll})")
-        padded, mask = self._place(*pad_params(params,
-                                               self._bucket(params.n)))
-        opt = make_optimizer(cfg, padded)
-        loss = torch.zeros(())
-        n_live = params.n
-        if self.warm:
-            self.prefill_t_cache(
-                padded, mask,
-                anneal_for_step(cfg, stage, 1 + step_offset)[1])
-        clusters = self._build_cluster_table(padded, mask)
-        fg_pool, n_fg_pool = self._sample_fg
-        runner = ChunkRunner(
-            self._step_for_stage(stage), padded, opt,
-            lr_scale_tree(cfg, stage), stage, mask, self.dataset.packed,
-            fg_pool, n_fg_pool, generator, t_cache=self.t_cache,
-            clusters=clusters, idx_fn=idx_fn, step_offset=step_offset,
-            unroll=cfg.scan_unroll, graphs=self._replays_graphs())
-        t0 = time.perf_counter()
-        try:
-            for start in range(0, steps, chunk):
-                if cfg.cluster_repulsion:
-                    runner.refresh_static(build_repulsion_static(
-                        padded.centers, clusters, mask))
-                runner.run(start + 1, chunk)
-                step = start + chunk
-                if step % 100 == 0 or step == steps:
-                    loss = runner.loss.clone()
-                    lv = float(loss)   # the only host read of the loop
-                    rate = step * cfg.batch_size / (time.perf_counter() - t0)
-                    self.loss_history.append(lv)
-                    _, smooth_k, _ = anneal_for_step(cfg, stage,
-                                                     step + step_offset)
-                    self.log(f"  Step {step} | Loss: {lv:.5f} | k: "
-                             f"{smooth_k:.1f} | {rate:,.0f} rays/s")
-                    self.metrics.log(stage=stage, step=step, loss=lv,
-                                     smooth_k=round(smooth_k, 2),
-                                     n_primitives=n_live,
-                                     rays_per_s=round(rate))
-        finally:
-            runner.close()
-        return (*self._gather(padded, mask), loss)
+        TRACER.count("stages")
+        with annotate("trainer.stage", stage=stage):
+            padded, mask = self._place(*pad_params(params,
+                                                   self._bucket(params.n)))
+            opt = make_optimizer(cfg, padded)
+            loss = torch.zeros(())
+            n_live = params.n
+            if self.warm:
+                with annotate("trainer.prefill"):
+                    self.prefill_t_cache(
+                        padded, mask,
+                        anneal_for_step(cfg, stage, 1 + step_offset)[1])
+            with annotate("trainer.cluster_tables"):
+                clusters = self._build_cluster_table(padded, mask)
+            fg_pool, n_fg_pool = self._sample_fg
+            runner = ChunkRunner(
+                self._step_for_stage(stage), padded, opt,
+                lr_scale_tree(cfg, stage), stage, mask, self.dataset.packed,
+                fg_pool, n_fg_pool, generator, t_cache=self.t_cache,
+                clusters=clusters, idx_fn=idx_fn, step_offset=step_offset,
+                unroll=cfg.scan_unroll, graphs=self._replays_graphs())
+            t0 = time.perf_counter()
+            try:
+                for start in range(0, steps, chunk):
+                    if cfg.cluster_repulsion:
+                        with annotate("trainer.refresh_static"):
+                            runner.refresh_static(build_repulsion_static(
+                                padded.centers, clusters, mask))
+                    runner.run(start + 1, chunk)
+                    step = start + chunk
+                    if step % 100 == 0 or step == steps:
+                        loss = runner.loss.clone()
+                        with annotate("trainer.loss_read"):
+                            lv = float(loss)   # the only host read of the loop
+                        rate = step * cfg.batch_size / (
+                            time.perf_counter() - t0)
+                        self.loss_history.append(lv)
+                        _, smooth_k, _ = anneal_for_step(cfg, stage,
+                                                         step + step_offset)
+                        self.log(f"  Step {step} | Loss: {lv:.5f} | k: "
+                                 f"{smooth_k:.1f} | {rate:,.0f} rays/s")
+                        self.metrics.log(stage=stage, step=step, loss=lv,
+                                         smooth_k=round(smooth_k, 2),
+                                         n_primitives=n_live,
+                                         rays_per_s=round(rate))
+            finally:
+                runner.close()
+            return (*self._gather(padded, mask), loss)
 
     def _load_views(self, cameras=None, targets=None):
         """(cameras, per-view linear targets) of the training views."""
@@ -718,20 +726,20 @@ class Trainer:
         if not self._io:
             return
         cfg = self.cfg
-        ro, rd = create_camera_rays(cfg.width, cfg.height, [0.0, 0.0, -2.5],
-                                    [0.0, 0.0, 0.0], 50.0,
-                                    device=self.device)
-        img = render_tiled(padded, ro, rd, smooth_k=cfg.max_smooth_k,
-                           mask=mask, chunk=cfg.preview_chunk,
-                           march_normal_fn=self.march_normal_fn,
-                           softmax_sharpness=cfg.render.softmax_sharpness,
-                           mask_sharpness=cfg.render.mask_sharpness,
-                           cull=self._cull_render(),
-                           order_wh=(cfg.width, cfg.height),
-                           mask_pixel_mult=cfg.render.mask_pixel_mult,
-                           pixel_angle=cfg.render.pixel_angle,
-                           coverage_mode=cfg.render.coverage_mode)
-        save_array_as_image(img, cfg.width, cfg.height, path)
+        with annotate("trainer.preview"):
+            ro, rd = create_camera_rays(cfg.width, cfg.height,
+                                        [0.0, 0.0, -2.5], [0.0, 0.0, 0.0],
+                                        50.0, device=self.device)
+            img = render_tiled(
+                padded, ro, rd, smooth_k=cfg.max_smooth_k, mask=mask,
+                chunk=cfg.preview_chunk, march_normal_fn=self.march_normal_fn,
+                softmax_sharpness=cfg.render.softmax_sharpness,
+                mask_sharpness=cfg.render.mask_sharpness,
+                cull=self._cull_render(), order_wh=(cfg.width, cfg.height),
+                mask_pixel_mult=cfg.render.mask_pixel_mult,
+                pixel_angle=cfg.render.pixel_angle,
+                coverage_mode=cfg.render.coverage_mode)
+            save_array_as_image(img, cfg.width, cfg.height, path)
         self.log(f"Saved image to {path}")
 
     # --- stage guard (config.stage_guard) ------------------------------- #
@@ -864,8 +872,9 @@ class Trainer:
         cfg = self.cfg
         self.log("Final Stage Complete! Exporting results...")
         if self._io:
-            export_scene_json(padded, cfg.scene_json,
-                              mask=mask.cpu().numpy())
+            with annotate("trainer.export"):
+                export_scene_json(padded, cfg.scene_json,
+                                  mask=mask.cpu().numpy())
         self.log(f"  => Saved to {cfg.scene_json} (N = {n})")
         self.save_preview(padded, mask,
                           os.path.join(cfg.steps_dir, "final_1.png"))
@@ -881,9 +890,10 @@ class Trainer:
         path = self._ckpt_path(stage)
         if not path or not self._io:
             return
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        np.savez(path, stage=stage, key=np.asarray(key),
-                 **params_to_numpy(params))
+        with annotate("trainer.checkpoint", stage=stage):
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            np.savez(path, stage=stage, key=np.asarray(key),
+                     **params_to_numpy(params))
 
     def latest_checkpoint(self):
         """(stage, params, key) of the newest stage checkpoint, or None."""
@@ -903,38 +913,42 @@ class Trainer:
             ) -> tuple[SceneParams, torch.Tensor]:
         """Full multi-stage run → (final padded params, mask)."""
         cfg = self.cfg
-        key = np.asarray([0, cfg.seed], np.uint32)
-        rng = np.random.default_rng(cfg.seed)
-        params = self._init_params()
-        start_stage = 0
-        if resume:
-            ck = self.latest_checkpoint()
-            if ck is not None:
-                start_stage, params, key = ck
-                self.log(f"Resuming from stage {start_stage} checkpoint")
+        TRACER.count("jobs")
+        with annotate("trainer.run", seed=cfg.seed):
+            key = np.asarray([0, cfg.seed], np.uint32)
+            rng = np.random.default_rng(cfg.seed)
+            with annotate("trainer.init"):
+                params = self._init_params()
+            start_stage = 0
+            if resume:
+                ck = self.latest_checkpoint()
+                if ck is not None:
+                    start_stage, params, key = ck
+                    self.log(f"Resuming from stage {start_stage} checkpoint")
 
-        self.log("Start Multi-Stage Optimization...")
-        if cfg.stage_guard:
-            return self._run_guarded(params, key, start_stage)
-        padded, mask = pad_params(params, bucket_size(params.n))
-        for stage in range(start_stage, cfg.stages):
-            self.log(f"=== Stage {stage + 1}/{cfg.stages} (N = {params.n}) "
-                     "===")
-            params = self._prepare_stage_params(params)
-            stage_init_centers = params.centers.detach().cpu().numpy()
-            key, sub = split_key(key)
-            padded, mask, _ = self.run_stage(params, stage,
-                                             self._stage_generator(sub))
-            if stage == cfg.stages - 1:
-                self._export_final(padded, mask, params.n)
-                break
-            self.save_preview(padded, mask,
-                              os.path.join(cfg.steps_dir,
-                                           f"stage_{stage}.png"))
-            params = self._density_control(padded, mask, params.n,
-                                           stage_init_centers, stage, rng)
-            self.save_checkpoint(stage + 1, params, key)
-        return padded, mask
+            self.log("Start Multi-Stage Optimization...")
+            if cfg.stage_guard:
+                return self._run_guarded(params, key, start_stage)
+            with annotate("trainer.init"):
+                padded, mask = pad_params(params, bucket_size(params.n))
+            for stage in range(start_stage, cfg.stages):
+                self.log(f"=== Stage {stage + 1}/{cfg.stages} "
+                         f"(N = {params.n}) ===")
+                params = self._prepare_stage_params(params)
+                stage_init_centers = params.centers.detach().cpu().numpy()
+                key, sub = split_key(key)
+                padded, mask, _ = self.run_stage(params, stage,
+                                                 self._stage_generator(sub))
+                if stage == cfg.stages - 1:
+                    self._export_final(padded, mask, params.n)
+                    break
+                self.save_preview(padded, mask,
+                                  os.path.join(cfg.steps_dir,
+                                               f"stage_{stage}.png"))
+                params = self._density_control(padded, mask, params.n,
+                                               stage_init_centers, stage, rng)
+                self.save_checkpoint(stage + 1, params, key)
+            return padded, mask
 
     def _density_control(self, padded: SceneParams, mask: torch.Tensor,
                          n_live: int, stage_init_centers: np.ndarray,
@@ -942,26 +956,27 @@ class Trainer:
         """Generation boundary: prune/split (+ optional merge / residual
         scoring) on the live rows → next generation's params."""
         cfg = self.cfg
-        live = params_to_numpy(unpad_params(padded, n_live))
-        split_scores = None
-        if cfg.density.split_mode == "residual":
-            # Residual attribution through the compositor weights, scored
-            # on the padded params (live rows are the first n) under the
-            # STAGE's forward, not the final one: residuals must reflect
-            # the model the stage trained.
-            k_end = anneal_for_step(cfg, stage, cfg.steps_per_stage)[1]
-            split_scores = primitive_residual_scores(
-                padded, mask, self._global_dataset(),
-                self._stage_cfg(self._render_overrides_for_stage(stage)),
-                k_end, kern=self.culled_march_normal_fn)[:n_live]
-        centers, colors, radii, stats = prune_and_split(
-            live["centers"], live["colors"], live["radii"],
-            stage_init_centers, stage, cfg.stages, rng, cfg.density,
-            split_scores=split_scores)
-        params = params_from_numpy(
-            {"centers": centers, "colors": colors, "radii": radii,
-             "light_dir": live["light_dir"], "ambient": live["ambient"]},
-            device=self.device)
+        with annotate("trainer.density", stage=stage):
+            live = params_to_numpy(unpad_params(padded, n_live))
+            split_scores = None
+            if cfg.density.split_mode == "residual":
+                # Residual attribution through the compositor weights, scored
+                # on the padded params (live rows are the first n) under the
+                # STAGE's forward, not the final one: residuals must reflect
+                # the model the stage trained.
+                k_end = anneal_for_step(cfg, stage, cfg.steps_per_stage)[1]
+                split_scores = primitive_residual_scores(
+                    padded, mask, self._global_dataset(),
+                    self._stage_cfg(self._render_overrides_for_stage(stage)),
+                    k_end, kern=self.culled_march_normal_fn)[:n_live]
+            centers, colors, radii, stats = prune_and_split(
+                live["centers"], live["colors"], live["radii"],
+                stage_init_centers, stage, cfg.stages, rng, cfg.density,
+                split_scores=split_scores)
+            params = params_from_numpy(
+                {"centers": centers, "colors": colors, "radii": radii,
+                 "light_dir": live["light_dir"], "ambient": live["ambient"]},
+                device=self.device)
         self.events.append(dict(kind="density", stage=stage, n_before=n_live,
                                 n_after=params.n, kept=int(stats.kept),
                                 split=int(stats.split),

@@ -76,6 +76,7 @@ from burn_raymarching_tpu_torch.render.culled import (
     render_diff_culled,
 )
 from burn_raymarching_tpu_torch.train.loss import compute_loss
+from burn_raymarching_tpu_torch.utils.profiling import TRACER, annotate
 
 
 def lr_scale_tree(cfg: TrainConfig, stage: Optional[int] = None
@@ -301,9 +302,9 @@ def make_device_step(cfg: TrainConfig, *, march_normal_fn: Optional[Callable],
     the dataset's device (what a captured step reads). The anneals are
     ``device_schedule``'s tensors; nothing is read back to the host, so
     the step can be recorded in a CUDA graph. The step leaves the
-    gradients in ``params``' ``.grad``. ``idx`` injects the sampled batch indices
-    (tests); culled steps sort them. With ``warm`` the march starts from
-    ``warm_backoff`` × the cached t of each pixel and writes its result
+    gradients in ``params``' ``.grad``. ``idx`` injects the sampled batch
+    indices (tests); culled steps sort them. With ``warm`` the march starts
+    from ``warm_backoff`` × the cached t of each pixel and writes its result
     back into ``t_cache`` [P] in place. ``clusters`` (PrimitiveClusters)
     feeds hierarchical culling and the cluster repulsion; ``rep_static`` is
     the repulsion's frozen prep. ``culled_march_fn`` (K3) and
@@ -311,7 +312,11 @@ def make_device_step(cfg: TrainConfig, *, march_normal_fn: Optional[Callable],
     versions. ``batch`` is this rank's batch; ``data_axis`` / ``model_axis``
     as in the module docstring: all tensor
     arguments are then this rank's shards, and ``clusters`` is in the
-    shard's own row ids.
+    shard's own row ids. The step's phases are spans
+    (utils/profiling.annotate: ``step.sample``, ``step.select``,
+    ``step.march``, ``step.tail``, ``step.loss``, ``step.backward``); with
+    the tracer on, a culled step adds its valid table entries to the
+    tracer's device counter.
     """
     rc = cfg.render
     fused = uses_fused_shade(cfg, march_normal_fn, model_axis)
@@ -341,106 +346,120 @@ def make_device_step(cfg: TrainConfig, *, march_normal_fn: Optional[Callable],
                     idx: Optional[torch.Tensor] = None,
                     t_cache: Optional[torch.Tensor] = None, clusters=None,
                     rep_static=None):
-        if not torch.is_tensor(step):
-            step = torch.tensor(step, device=packed.device)
-        progress, smooth_k, uniform_ratio, lr = device_schedule(
-            cfg, stage, step)
-        if idx is None:
-            idx = sample_step_indices(cfg, generator, packed.shape[0],
-                                      fg_indices, n_fg, n_unique,
-                                      uniform_ratio)
-        if cfg.use_culling:
-            # Sorted indices → tile-coherent rays; a with-replacement sample
-            # is order-free, so the loss is unchanged.
-            idx = torch.sort(idx).values
-        ro, rd, tgt = gather_batch(packed, idx)
-        if ss > 1:
-            # Sub-rays are pixel-major-adjacent, so sorted unique pixels
-            # stay tile-coherent after expansion; tgt stays per pixel.
-            ro, rd = expand_subpixel(ro, rd, ss, rc.pixel_angle)
+        with annotate("step.sample"):
+            if not torch.is_tensor(step):
+                step = torch.tensor(step, device=packed.device)
+            progress, smooth_k, uniform_ratio, lr = device_schedule(
+                cfg, stage, step)
+            if idx is None:
+                idx = sample_step_indices(cfg, generator, packed.shape[0],
+                                          fg_indices, n_fg, n_unique,
+                                          uniform_ratio)
+        with annotate("step.select"):
+            if cfg.use_culling:
+                # Sorted indices → tile-coherent rays; a with-replacement
+                # sample is order-free, so the loss is unchanged.
+                idx = torch.sort(idx).values
+            ro, rd, tgt = gather_batch(packed, idx)
+            if ss > 1:
+                # Sub-rays are pixel-major-adjacent, so sorted unique pixels
+                # stay tile-coherent after expansion; tgt stays per pixel.
+                ro, rd = expand_subpixel(ro, rd, ss, rc.pixel_angle)
 
         culled_pre = None
         t = normal = None
         if cfg.use_culling or fused or dense_warm:
             with torch.no_grad():
-                c_det, _, r_det, _, _ = activate(params)
-                t0 = None
-                if warm:
-                    t0 = t_cache[idx][:, None] * cfg.warm_backoff
-                    if ss > 1:
-                        # One cached root per pixel: its sub-rays share the
-                        # warm start, the cache takes back their mean root.
-                        t0 = t0.repeat_interleave(ss, dim=0)
-                if cfg.use_culling:
-                    idx_t, valid_t, cs, rs, qs = culled_tables(
-                        cfg, ro, rd, c_det, r_det, smooth_k, mask,
-                        clusters if hier else None)
-                    b_t = ro.shape[0] // cfg.cull_tile
-                    tile_march = culled_march_backend(
-                        culled_march_fn, b_t, model_axis)
-                    t, normal = tile_march(
-                        ro.reshape(b_t, cfg.cull_tile, 3),
-                        rd.reshape(b_t, cfg.cull_tile, 3), cs, rs, qs,
-                        smooth_k,
-                        num_steps=cfg.warm_steps if warm else rc.march_steps,
-                        normal_eps=rc.normal_eps,
-                        t_init=(None if t0 is None else
-                                t0.reshape(b_t, cfg.cull_tile, 1)))
-                    culled_pre = (idx_t, valid_t, t, normal)
-                else:
-                    warm_kw = (dict(num_steps=cfg.warm_steps, t_init=t0)
-                               if warm else {})
-                    t, normal = march_normal_fn(ro, rd, c_det, r_det,
-                                                smooth_k, mask=mask,
-                                                **warm_kw)
-                if warm:
-                    t_new = t.reshape(-1)
-                    if ss > 1:
-                        t_new = t_new.reshape(-1, ss).mean(dim=1)
-                    t_cache[idx] = t_new
+                with annotate("step.select"):
+                    c_det, _, r_det, _, _ = activate(params)
+                    if cfg.use_culling:
+                        idx_t, valid_t, cs, rs, qs = culled_tables(
+                            cfg, ro, rd, c_det, r_det, smooth_k, mask,
+                            clusters if hier else None)
+                        TRACER.add_valid(valid_t)
+                        TRACER.count("tiles", valid_t.shape[0])
+                        TRACER.count("table_slots", valid_t.numel())
+                with annotate("step.march"):
+                    t0 = None
+                    if warm:
+                        t0 = t_cache[idx][:, None] * cfg.warm_backoff
+                        if ss > 1:
+                            # One cached root per pixel: its sub-rays share
+                            # the warm start, the cache takes back their
+                            # mean root.
+                            t0 = t0.repeat_interleave(ss, dim=0)
+                    if cfg.use_culling:
+                        b_t = ro.shape[0] // cfg.cull_tile
+                        tile_march = culled_march_backend(
+                            culled_march_fn, b_t, model_axis)
+                        t, normal = tile_march(
+                            ro.reshape(b_t, cfg.cull_tile, 3),
+                            rd.reshape(b_t, cfg.cull_tile, 3), cs, rs, qs,
+                            smooth_k,
+                            num_steps=(cfg.warm_steps if warm
+                                       else rc.march_steps),
+                            normal_eps=rc.normal_eps,
+                            t_init=(None if t0 is None else
+                                    t0.reshape(b_t, cfg.cull_tile, 1)))
+                        culled_pre = (idx_t, valid_t, t, normal)
+                    else:
+                        warm_kw = (dict(num_steps=cfg.warm_steps, t_init=t0)
+                                   if warm else {})
+                        t, normal = march_normal_fn(ro, rd, c_det, r_det,
+                                                    smooth_k, mask=mask,
+                                                    **warm_kw)
+                    if warm:
+                        t_new = t.reshape(-1)
+                        if ss > 1:
+                            t_new = t_new.reshape(-1, ss).mean(dim=1)
+                        t_cache[idx] = t_new
 
-        c_p, col_p, r_p, ld_p, amb_p = activate(params)
-        if culled_pre is not None:
-            out = render_diff_culled(
-                ro, rd, c_p, col_p, r_p, ld_p, amb_p, smooth_k, mask=mask,
-                tile=cfg.cull_tile, k_budget=cfg.cull_budget,
-                num_steps=rc.march_steps,
-                softmax_sharpness=rc.softmax_sharpness,
-                mask_sharpness=rc.mask_sharpness, normal_eps=rc.normal_eps,
-                precomputed=culled_pre, mask_pixel_mult=rc.mask_pixel_mult,
-                pixel_angle=rc.pixel_angle, coverage_mode=rc.coverage_mode,
+        with annotate("step.tail"):
+            c_p, col_p, r_p, ld_p, amb_p = activate(params)
+            if culled_pre is not None:
+                out = render_diff_culled(
+                    ro, rd, c_p, col_p, r_p, ld_p, amb_p, smooth_k,
+                    mask=mask, tile=cfg.cull_tile, k_budget=cfg.cull_budget,
+                    num_steps=rc.march_steps,
+                    softmax_sharpness=rc.softmax_sharpness,
+                    mask_sharpness=rc.mask_sharpness,
+                    normal_eps=rc.normal_eps, precomputed=culled_pre,
+                    mask_pixel_mult=rc.mask_pixel_mult,
+                    pixel_angle=rc.pixel_angle,
+                    coverage_mode=rc.coverage_mode, model_axis=model_axis)
+            elif fused:
+                out = shade_fused(ro, rd, t, normal, c_p, r_p, col_p, ld_p,
+                                  amb_p, smooth_k, mask=mask)
+            else:
+                mn_fn = march_normal_fn
+                if t is not None:
+                    t_det, n_det = t, normal
+                    mn_fn = lambda *a, **kw: (t_det, n_det)  # noqa: E731
+                out = scene_forward(params, ro, rd, smooth_k, mask=mask,
+                                    march_normal_fn=mn_fn,
+                                    num_steps=rc.march_steps,
+                                    softmax_sharpness=rc.softmax_sharpness,
+                                    mask_sharpness=rc.mask_sharpness,
+                                    normal_eps=rc.normal_eps,
+                                    mask_pixel_mult=rc.mask_pixel_mult,
+                                    pixel_angle=rc.pixel_angle,
+                                    coverage_mode=rc.coverage_mode,
+                                    model_axis=model_axis)
+        with annotate("step.loss"):
+            if ss > 1:
+                out = out.reshape(n_unique, ss, 3).mean(dim=1)
+            loss = compute_loss(
+                params, out, tgt, progress, mask=mask, cfg=cfg.loss,
+                repulsion_clusters=clusters if cfg.cluster_repulsion else None,
+                repulsion_fn=repulsion_fn,
+                repulsion_static=rep_static if model_axis is None else None,
                 model_axis=model_axis)
-        elif fused:
-            out = shade_fused(ro, rd, t, normal, c_p, r_p, col_p, ld_p,
-                              amb_p, smooth_k, mask=mask)
-        else:
-            mn_fn = march_normal_fn
-            if t is not None:
-                t_det, n_det = t, normal
-                mn_fn = lambda *a, **kw: (t_det, n_det)  # noqa: E731
-            out = scene_forward(params, ro, rd, smooth_k, mask=mask,
-                                march_normal_fn=mn_fn,
-                                num_steps=rc.march_steps,
-                                softmax_sharpness=rc.softmax_sharpness,
-                                mask_sharpness=rc.mask_sharpness,
-                                normal_eps=rc.normal_eps,
-                                mask_pixel_mult=rc.mask_pixel_mult,
-                                pixel_angle=rc.pixel_angle,
-                                coverage_mode=rc.coverage_mode,
-                                model_axis=model_axis)
-        if ss > 1:
-            out = out.reshape(n_unique, ss, 3).mean(dim=1)
-        loss = compute_loss(
-            params, out, tgt, progress, mask=mask, cfg=cfg.loss,
-            repulsion_clusters=clusters if cfg.cluster_repulsion else None,
-            repulsion_fn=repulsion_fn,
-            repulsion_static=rep_static if model_axis is None else None,
-            model_axis=model_axis)
-        params.zero_grad(set_to_none=True)
-        loss.backward()
-        loss = loss.detach()
-        if data_axis is not None:
-            loss = mean_grads(params.parameters(), data_axis, extra=loss)
+        with annotate("step.backward"):
+            params.zero_grad(set_to_none=True)
+            loss.backward()
+            loss = loss.detach()
+            if data_axis is not None:
+                loss = mean_grads(params.parameters(), data_axis, extra=loss)
         return loss, lr
 
     return device_step

@@ -2169,7 +2169,7 @@ def phase_viewer(torch, dev, tmp: str) -> tuple[dict, dict]:
             frame("train")
     with open(os.path.join(trace_dir, "trace.json")) as f:
         events = json.load(f)["traceEvents"]
-    found = {"viewer_frame": sum(e.get("name") == "viewer_frame"
+    found = {"viewer_frame": sum(e.get("name") == "prog.viewer_frame"
                                  for e in events),
              "march_shade_kernel": sum(
                  e.get("cat") == "kernel"

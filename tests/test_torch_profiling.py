@@ -1,6 +1,6 @@
 """The port's utils/profiling against the JAX package's: a named region in
-the written trace, a positive best-of wall time, and a NaN check that
-raises inside its context (forward and backward) and not outside it."""
+the written trace, and a NaN check that raises inside its context (forward
+and backward) and not outside it."""
 
 import json
 import os
@@ -21,7 +21,7 @@ def test_trace_holds_the_annotation(tmp_path):
     assert torch.isfinite(a).all()
     with open(os.path.join(logdir, "trace.json")) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
-    assert "viewer_frame" in names
+    assert "prog.viewer_frame" in names
 
 
 def test_trace_window_reads_a_host_only_trace(tmp_path):
@@ -41,19 +41,6 @@ def test_annotate_outside_a_trace_is_transparent():
     with profiling.annotate("region"):
         out = torch.ones(3) * 2.0
     assert torch.equal(out, torch.full((3,), 2.0))
-
-
-def test_timed_step_returns_a_positive_best_of():
-    calls = []
-
-    def fn(x):
-        calls.append(1)
-        return x @ x, x.sum()
-
-    best = profiling.timed_step(fn, torch.randn(32, 32), iters=3, warmup=1,
-                                sync_output=lambda r: r[1])
-    assert 0.0 < best < 10.0
-    assert len(calls) == 4
 
 
 def test_debug_mode_raises_on_a_forward_nan():
