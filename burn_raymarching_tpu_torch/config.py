@@ -256,8 +256,9 @@ class TrainConfig:
     warm_start: bool = False
     warm_steps: int = 16
     warm_backoff: float = 0.8
-    # Fused shade/composite kernel with a hand-written backward for the
-    # gradient path (ops/cuda/shade_kernel.py); active when use_pallas is.
+    # Fused shade/composite kernels with hand-written backwards for the
+    # gradient path, dense (K2, ops/cuda/shade_kernel.py) or culled (K6,
+    # ops/cuda/culled_shade_kernel.py); active when use_pallas is.
     use_fused_shade: bool = True
     # Steps per chunk (the JAX package's steps per device call): the repulsion
     # tables are rebuilt at each chunk start and the loss is read only at

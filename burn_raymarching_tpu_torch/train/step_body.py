@@ -5,9 +5,10 @@ One step: sample a batch → forward → loss → autograd. Three forwards:
 
 * culled (``use_culling``): the batch indices are sorted so rays are
   tile-coherent; selection and the K3 march (cold, or warm from the per-
-  pixel t cache) run detached outside autograd, and render_diff_culled runs
-  only the gradient-carrying tail on tables re-gathered from the live
-  parameters;
+  pixel t cache) run detached outside autograd, and only the
+  gradient-carrying tail runs on tables re-gathered from the live
+  parameters: the K6 fused tail (ops/cuda/culled_shade_kernel.py) when
+  ``uses_fused_culled_shade``, render_diff_culled otherwise;
 * dense with the hand kernels (``march_normal_fn`` given): the detached K1
   march (cold, or warm from the t cache) followed by the K2 fused shade,
   or by the plain tail when the render config is not the reference's;
@@ -59,8 +60,12 @@ from burn_raymarching_tpu_torch.models.scene import (
     activate,
     scene_forward,
 )
+from burn_raymarching_tpu_torch.ops.cuda.culled_shade_kernel import (
+    culled_shade,
+)
 from burn_raymarching_tpu_torch.ops.cuda.shade_kernel import shade_fused
 from burn_raymarching_tpu_torch.ops.culling import (
+    gather_tile_tables,
     select_tile_primitives,
     select_tile_primitives_hier,
     tile_cones,
@@ -186,13 +191,26 @@ def expand_subpixel(ro: torch.Tensor, rd: torch.Tensor, ss: int,
 def uses_fused_shade(cfg: TrainConfig, march_normal_fn,
                      model_axis: Optional[Axis] = None) -> bool:
     """The K2 kernel hard-codes the reference compositor and dense tables:
-    culled runs, M-sharded runs and other render configs take the plain
-    tail."""
+    culled runs (``uses_fused_culled_shade``), M-sharded runs and other
+    render configs take another tail."""
     rc = cfg.render
     return (march_normal_fn is not None and cfg.use_fused_shade
             and not cfg.use_culling and model_axis is None
             and rc.mask_pixel_mult == 0.0 and rc.coverage_mode == "sigmoid"
             and (rc.softmax_sharpness, rc.mask_sharpness) == (10.0, 15.0))
+
+
+def uses_fused_culled_shade(cfg: TrainConfig, culled_march_fn,
+                            model_axis: Optional[Axis] = None) -> bool:
+    """The K6 kernel computes the culled tail on one whole table with
+    sigmoid coverage and no pixel footprint (the two sharpness values are
+    its arguments): model-sharded runs, the plain march and other render
+    configs take render_diff_culled."""
+    rc = cfg.render
+    return (culled_march_fn is not None and cfg.use_fused_shade
+            and cfg.use_culling and model_axis is None
+            and rc.coverage_mode == "sigmoid"
+            and (rc.mask_pixel_mult <= 0.0 or rc.pixel_angle <= 0.0))
 
 
 def sample_step_indices(cfg: TrainConfig, generator: torch.Generator,
@@ -316,10 +334,12 @@ def make_device_step(cfg: TrainConfig, *, march_normal_fn: Optional[Callable],
     (utils/profiling.annotate: ``step.sample``, ``step.select``,
     ``step.march``, ``step.tail``, ``step.loss``, ``step.backward``); with
     the tracer on, a culled step adds its valid table entries to the
-    tracer's device counter.
+    tracer's device counter and 1 to its counter ``tail.fused`` (K6) or
+    ``tail.plain``.
     """
     rc = cfg.render
     fused = uses_fused_shade(cfg, march_normal_fn, model_axis)
+    fused_culled = uses_fused_culled_shade(cfg, culled_march_fn, model_axis)
     if model_axis is not None:
         repulsion_fn = None
         if march_normal_fn is not None and not cfg.use_culling:
@@ -416,7 +436,17 @@ def make_device_step(cfg: TrainConfig, *, march_normal_fn: Optional[Callable],
 
         with annotate("step.tail"):
             c_p, col_p, r_p, ld_p, amb_p = activate(params)
-            if culled_pre is not None:
+            if culled_pre is not None and fused_culled:
+                TRACER.count("tail.fused")
+                centers_t, colors_t, radii_t, _ = gather_tile_tables(
+                    c_p, col_p, r_p, idx_t, valid_t)
+                out = culled_shade(
+                    ro.reshape(t.shape[0], cfg.cull_tile, 3),
+                    rd.reshape(t.shape[0], cfg.cull_tile, 3), t, normal,
+                    centers_t, colors_t, radii_t, valid_t, ld_p, amb_p,
+                    smooth_k, rc.softmax_sharpness, rc.mask_sharpness)
+            elif culled_pre is not None:
+                TRACER.count("tail.plain")
                 out = render_diff_culled(
                     ro, rd, c_p, col_p, r_p, ld_p, amb_p, smooth_k,
                     mask=mask, tile=cfg.cull_tile, k_budget=cfg.cull_budget,

@@ -31,7 +31,12 @@ non-zero without the final result line:
                    steps from 0.8 t_cold), within 5x the plain version's
                    own float32 error against float64; its chunked path (8
                    tiles against 8,192 live columns, more than the resident
-                   table holds) the same way; K4 forward and
+                   table holds) the same way; K6 (the culled step's
+                   fused tail) forward and gradients on the same tiles
+                   (and on 4 tiles of 2,048 valid slots, staged in two
+                   chunks) against the plain tail, within 5x its own
+                   float32 error against float64, bitwise repeats, its
+                   launches and the plain tail timed; K4 forward and
                    backward against autograd of the plain versions, member
                    and monopole, at C = 80 (config 4) and C = 800
                    (M = 51,200), with a bitwise repeat check of its
@@ -252,8 +257,8 @@ K2_NARROW = (10, 16)
 # Train-view PSNR floor after the short 2 x 100-step run: far below a full
 # run's ~30 dB, far above the ~10 dB of an untrained or broken scene.
 MIN_PSNR_DB = 15.0
-LIBRARIES = ("march_shade", "shade", "culled_march", "repulsion",
-             "march_variants", "noop")
+LIBRARIES = ("march_shade", "shade", "culled_march", "culled_shade",
+             "repulsion", "march_variants", "noop")
 # Config 4 (runs/c4_r2): the knot capture, the prior-seeded init and the
 # per-tile top-K budget.
 C4_VIEWS, C4_SIZE, C4_GT_N, C4_INIT_N = 30, 512, 400, 5120
@@ -895,6 +900,125 @@ def chunked_tiles(torch, dev, ro3, rd3):
             torch.sum(cs * cs, dim=2))
 
 
+def full_tables(torch, args, c, r, mask):
+    """K3 inputs of the first 4 ray tiles, each against the first C4_BUDGET
+    live primitives: every slot of the tables valid."""
+    ids = torch.nonzero(mask.reshape(-1))[:C4_BUDGET, 0]
+    cs = c[ids][None].expand(4, -1, -1).contiguous()
+    rs = r.reshape(-1)[ids][None].expand(4, -1).contiguous()
+    return (args[0][:4].contiguous(), args[1][:4].contiguous(), cs, rs,
+            torch.sum(cs * cs, dim=2))
+
+
+def k6_inputs(torch, dev, args):
+    """K6's inputs on K3's tiles and tables (ro3, rd3, cs, rs, qs): t and
+    normal from K3's cold march, colours drawn from a fixed seed, config 4's
+    light and ambient at init → (ro3, rd3, t, normal, cs, colours, rs,
+    valid, light, ambient) and a cotangent of the output."""
+    from burn_raymarching_tpu_torch.ops.cuda import culled_march_kernel as k3
+
+    ro3, rd3, cs, rs, qs = args
+    gen = torch.Generator().manual_seed(6)
+    cols = torch.rand(cs.shape, generator=gen).to(dev)
+    cot = torch.randn((ro3.shape[0] * ro3.shape[1], 3), generator=gen).to(dev)
+    t, normal = k3.culled_march_normals(*args, C4_K)
+    light = torch.tensor([0.3, 1.0, -0.4], device=dev)
+    amb = torch.tensor([0.2], device=dev)
+    return (ro3, rd3, t, normal, cs, cols, rs, qs < 1e29, light, amb), cot
+
+
+# Config 4's compositor: softmax and coverage sharpness.
+C4_SHARPNESS = (40.0, 60.0)
+K6_GRADS = ("d_centers", "d_colors", "d_radii", "d_light", "d_ambient")
+
+
+def k6_run(torch, tail, inp, cot, dtype=None) -> list:
+    """The culled tail ``tail`` (k6.culled_shade or its plain version) on
+    ``inp``, in ``dtype`` → [out, its five gradients under sum(out cot)]."""
+    dtype = dtype or torch.float32
+    ro3, rd3, t, normal, cs, cols, rs, valid, light, amb = inp
+    leaves = [x.to(dtype).clone().requires_grad_()
+              for x in (cs, cols, rs, light, amb)]
+    out = tail(ro3.to(dtype), rd3.to(dtype), t.to(dtype), normal.to(dtype),
+               leaves[0], leaves[1], leaves[2], valid, leaves[3], leaves[4],
+               C4_K, *C4_SHARPNESS)
+    grads = torch.autograd.grad(torch.sum(out * cot.to(dtype)), leaves)
+    return [out.detach(), *grads]
+
+
+def k6_case(torch, dev, args, label: str, failures: list) -> dict:
+    """K6 on K3's tiles: value and gradients against the plain tail within
+    5x the plain version's float32 gap to float64 + 1e-5 (the rule of K3's
+    and K5's tolerances), a repeat bitwise equal; each launch timed alone,
+    the plain tail's forward and forward + backward → errors, times,
+    bounds."""
+    from burn_raymarching_tpu_torch.ops.cuda import build
+    from burn_raymarching_tpu_torch.ops.cuda import culled_shade_kernel as k6
+
+    inp, cot = k6_inputs(torch, dev, args)
+    got = k6_run(torch, k6.culled_shade, inp, cot)
+    plain = k6_run(torch, k6.culled_shade_plain, inp, cot)
+    plain64 = k6_run(torch, k6.culled_shade_plain, inp, cot, torch.float64)
+    again = k6_run(torch, k6.culled_shade, inp, cot)
+    errs, tols = {}, {}
+    for name, g, p, p64, a in zip(("out",) + K6_GRADS, got, plain, plain64,
+                                  again):
+        errs[name] = (g - p).abs().max().item()
+        tols[name] = 5.0 * (p.double() - p64).abs().max().item() + 1e-5
+        check_close(failures, f"K6 {label} {name}", errs[name], tols[name])
+        if not torch.equal(g, a):
+            failures.append(f"K6 {label} {name}: a repeat differs")
+    ro3, rd3, t, normal, cs, cols, rs, valid, light, amb = inp
+    k = build.device_scalar(C4_K, dev)
+    kern = (ro3, rd3, t, normal, cs, cols, rs, valid, light, amb, k)
+
+    def fwd():
+        return k6.launch_ctail_fwd(*kern, *C4_SHARPNESS)
+
+    out, state = fwd()
+
+    def bwd():
+        return k6.launch_ctail_bwd(*kern, state, cot, *C4_SHARPNESS)
+
+    leaves = [x.clone().requires_grad_() for x in (cs, cols, rs, light, amb)]
+
+    def plain_fwd():
+        return k6.culled_shade_plain(ro3, rd3, t, normal, *leaves[:3], valid,
+                                     *leaves[3:], C4_K, *C4_SHARPNESS)
+
+    def plain_fwd_bwd():
+        torch.autograd.grad(torch.sum(plain_fwd() * cot), leaves)
+
+    # Per (ray, valid slot) pair 5 SFU operations forward and 5 backward,
+    # as counts.py counts K2's tail (this backward makes ~10: it recomputes
+    # the distances).
+    b, tile, slots = ro3.shape[0], ro3.shape[1], valid.shape[1]
+    valid_slots = int(valid.sum())
+    pairs = float(tile * valid_slots)
+    rays = tensor_bytes(ro3, rd3, t, normal, cot)
+    table = tensor_bytes(cs, cols, rs, valid)
+    fwd_bytes = rays - tensor_bytes(cot) + table + tensor_bytes(out, state)
+    bwd_bytes = rays + table + tensor_bytes(state, cs, cols, rs)
+    fwd_ms, bwd_ms = time_ms(torch, fwd), time_ms(torch, bwd)
+    fwd_dev, bwd_dev = graph_ms(torch, fwd), graph_ms(torch, bwd)
+    plain_fwd_ms = time_ms(torch, plain_fwd, reps=5)
+    plain_ms = time_ms(torch, plain_fwd_bwd, reps=5)
+    plain_dev = graph_ms(torch, plain_fwd_bwd, launches=2, reps=3)
+    case = dict(tiles=b, rays_per_tile=tile, table=slots,
+                valid_slots=valid_slots,
+                live_columns_max=int(valid.sum(dim=1).max()),
+                errs=errs, tol=tols, fwd_ms=fwd_ms, fwd_device_ms=fwd_dev,
+                bwd_ms=bwd_ms, bwd_device_ms=bwd_dev,
+                plain_fwd_ms=plain_fwd_ms, plain_ms=plain_ms,
+                plain_device_ms=plain_dev,
+                fwd_bound=bound(fwd_bytes, sfu_ops=5.0 * pairs),
+                bwd_bound=bound(bwd_bytes, sfu_ops=5.0 * pairs),
+                bound_if_all_slots_valid=bound(
+                    fwd_bytes, sfu_ops=5.0 * b * tile * slots))
+    emit("kernel", name=f"culled_shade_{label}", **case)
+    return case
+
+
 # K4 tolerances, relative to the plain value or the plain gradient's
 # largest entry: float32 sums of 2.6 M (C = 80) to 67 M (C = 800) pair
 # terms, taken in another order.
@@ -1121,6 +1245,21 @@ def phase_kernels_c4(torch, dev) -> dict:
          **march_bound(23.0 * CHUNKED_TILES * C4_TILE * CHUNKED_K, *ch_args,
                        t_k, n_k))
 
+    # K6 on the same tiles (config 4's main path), then on full tables.
+    k6_main = k6_case(torch, dev, args, "c4", failures)
+    k6_full = k6_case(torch, dev, full_tables(torch, args, c, r, mask),
+                      "full_tables", failures)
+    for part in ("fwd", "bwd"):
+        errs = k6_main["errs"]
+        results[f"culled_shade_{part}"] = dict(
+            max_abs_err=(errs["out"] if part == "fwd" else
+                         max(errs[g] for g in K6_GRADS)),
+            ms=k6_main[f"{part}_ms"], device_ms=k6_main[f"{part}_device_ms"],
+            plain_ms=(k6_main["plain_fwd_ms"] if part == "fwd" else
+                      k6_main["plain_ms"] - k6_main["plain_fwd_ms"]),
+            **k6_main[f"{part}_bound"], library_ms=None,
+            full_tables_device_ms=k6_full[f"{part}_device_ms"])
+
     cases = {}
     for n, far_field in ((C4_INIT_N, "member"), (C4_INIT_N, "monopole"),
                          (LARGE_INIT_N, "member"),
@@ -1227,6 +1366,8 @@ TRACE_NAMES = {"march_shade_kernel": "march_shade",
                "shade_fwd_kernel": "shade_fwd",
                "shade_bwd_kernel": "shade_bwd",
                "culled_march_kernel": "culled_march",
+               "ctail_fwd_kernel": "culled_shade_fwd",
+               "ctail_bwd_kernel": "culled_shade_bwd",
                "rep_fwd_kernel": "repulsion_fwd",
                "rep_bwd_kernel": "repulsion_bwd"}
 CHUNK_STEPS = 100
@@ -1449,11 +1590,14 @@ def phase_c4(torch, dev, tmp: str) -> dict:
     ``tmp``/data_c4, the trained scene in ``tmp``/scene_c5.json) → K3 and
     K4's launch counts on that path."""
     from burn_raymarching_tpu_torch.ops.cuda import culled_march_kernel as k3
+    from burn_raymarching_tpu_torch.ops.cuda import culled_shade_kernel as k6
     from burn_raymarching_tpu_torch.ops.cuda import repulsion_kernel as k4
     from burn_raymarching_tpu_torch.tools import generate, run_c5
     from burn_raymarching_tpu_torch.train.loop import Trainer
 
     counters = {"culled_march": k3.culled_march_normals,
+                "culled_shade_fwd": k6.launch_ctail_fwd,
+                "culled_shade_bwd": k6.launch_ctail_bwd,
                 "repulsion_fwd": k4.launch_rep_fwd,
                 "repulsion_bwd": k4.launch_rep_bwd}
     data = os.path.join(tmp, "data_c4")
@@ -1796,9 +1940,12 @@ def kernel_counters() -> dict:
     """Every kernel wrapper's launch counter, by the ``kernels`` line's
     names."""
     from burn_raymarching_tpu_torch.ops.cuda import culled_march_kernel as k3
+    from burn_raymarching_tpu_torch.ops.cuda import culled_shade_kernel as k6
     from burn_raymarching_tpu_torch.ops.cuda import repulsion_kernel as k4
 
     return {**c1_counters(), "culled_march": k3.culled_march_normals,
+            "culled_shade_fwd": k6.launch_ctail_fwd,
+            "culled_shade_bwd": k6.launch_ctail_bwd,
             "repulsion_fwd": k4.launch_rep_fwd,
             "repulsion_bwd": k4.launch_rep_bwd}
 
@@ -2601,6 +2748,9 @@ SOURCES = {
     "shade_bwd": (_CSRC + "shade.cu", _PALLAS + "shade_kernel.py:283"),
     "culled_march": (_CSRC + "culled_march.cu",
                      _PALLAS + "culled_march_kernel.py:154"),
+    # K6: no TPU kernel (the JAX package leaves the culled tail to XLA).
+    "culled_shade_fwd": (_CSRC + "culled_shade.cu", None),
+    "culled_shade_bwd": (_CSRC + "culled_shade.cu", None),
     "repulsion_fwd": (_CSRC + "repulsion.cu",
                       _PALLAS + "repulsion_kernel.py:205"),
     "repulsion_bwd": (_CSRC + "repulsion.cu",
@@ -2611,6 +2761,10 @@ SOURCES = {
 }
 # The kernels that no training path runs, counted on phase 17's path.
 VARIANT_KERNELS = ("march_variants",)
+# K6 runs on no quality path of this run: the headline recipe's polish stage
+# shades with gaussian coverage (the plain tail), and refine's acceptance
+# loss takes no gradient.
+NO_QUALITY_PATH = ("culled_shade_fwd", "culled_shade_bwd")
 
 
 # Phase 14: the bench's launches per variant, by wrapper name (the
@@ -3247,9 +3401,10 @@ def main() -> int:
     # phases 11, 12, 13, 14, 15 and 16; ``launches_variants``: phase 17,
     # the march tools' path, the only one that runs K5.
     # Every path had its counts set to 0 just before it and read after it,
-    # and every training kernel is counted on one of the two quality paths.
+    # and every training kernel but K6 is counted on one of the two quality
+    # paths.
     quality = {**launches_guard, **launches_refine}
-    training = set(SOURCES) - set(VARIANT_KERNELS)
+    training = set(SOURCES) - set(VARIANT_KERNELS) - set(NO_QUALITY_PATH)
     if set(quality) != training:
         raise AssertionError(f"kernels not counted on a quality path: "
                              f"{sorted(training - set(quality))}")
