@@ -43,6 +43,8 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
+from burn_raymarching_tpu_torch.utils.profiling import TRACER
+
 
 @dataclass(frozen=True)
 class Axis:
@@ -175,9 +177,13 @@ def mean_grads(params, axis: Axis, extra: torch.Tensor):
     the scalar ``extra`` (the loss) with them, in one all-reduce → the
     averaged ``extra``. The data-parallel step: every replica then takes
     the same optimizer step, and equal shard sizes make the mean of shard
-    means the batch mean."""
+    means the batch mean. With the tracer on it counts ``grad_mean.calls``
+    and ``grad_mean.bytes``, the bytes all-reduced."""
     grads = [p.grad for p in params if p.grad is not None]
     flat = torch.cat([g.reshape(-1) for g in grads] + [extra.reshape(1)])
+    if TRACER.on:
+        TRACER.count("grad_mean.calls")
+        TRACER.count("grad_mean.bytes", flat.numel() * flat.element_size())
     flat = _all_reduce(flat, axis, dist.ReduceOp.SUM) / axis.size
     at = 0
     for g in grads:

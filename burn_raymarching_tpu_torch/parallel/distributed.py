@@ -64,6 +64,7 @@ from burn_raymarching_tpu_torch.parallel.train_step import (
 from burn_raymarching_tpu_torch.train.loop import Trainer, fold_key
 from burn_raymarching_tpu_torch.train.step_body import culled_march_backend
 from burn_raymarching_tpu_torch.utils import bucket_size
+from burn_raymarching_tpu_torch.utils.profiling import annotate
 
 
 class ShardedRayDataset:
@@ -118,15 +119,22 @@ class ShardedRayDataset:
 class DistributedTrainer(Trainer):
     """The Trainer over a (data, model) mesh of an initialized process
     group (parallel/mesh.init_distributed). ``dataset`` is the whole
-    dataset, on this rank's device."""
+    dataset, on this rank's device. The mesh's construction is the span
+    ``trainer.mesh`` (data, model, backend)."""
 
     def __init__(self, cfg: TrainConfig, dataset: RayDataset,
                  data: Optional[int] = None, model: int = 1,
                  log: Callable[[str], None] = print):
-        self.mesh = make_mesh(data=data, model=model)
-        self.data_axis = mesh_axis(self.mesh, "data")
-        self.model_axis = mesh_axis(self.mesh, "model")
-        self.model, self.n_data = self.model_axis.size, self.data_axis.size
+        with annotate("trainer.mesh") as attrs:
+            self.mesh = make_mesh(data=data, model=model)
+            self.data_axis = mesh_axis(self.mesh, "data")
+            self.model_axis = mesh_axis(self.mesh, "model")
+            self.model, self.n_data = (self.model_axis.size,
+                                       self.data_axis.size)
+            axes = (self.data_axis, self.model_axis)
+            backend = "/".join(sorted({ax.backend for ax in axes}))
+            attrs.update(data=self.n_data, model=self.model,
+                         backend=backend)
         tiles = cfg.batch_size // self.n_data // cfg.cull_tile
         if cfg.use_culling and self.model > 1 and tiles % self.model:
             raise ValueError(
@@ -140,10 +148,8 @@ class DistributedTrainer(Trainer):
         # Pixel-mode sampling reads this shard's own fg set.
         if cfg.sample_mode != "tile":
             self._sample_fg = (sharded.fg_indices, sharded.num_fg_local)
-        axes = (self.data_axis, self.model_axis)
         self._graphs = replays_graphs(self.device, axes)
         graphs = self._replays_graphs()      # what run_stage will read
-        backend = "/".join(sorted({ax.backend for ax in axes}))
         self.events.append(dict(kind="graphs", graphs=graphs,
                                 backend=backend,
                                 mesh=[self.n_data, self.model]))

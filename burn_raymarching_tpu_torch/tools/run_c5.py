@@ -24,8 +24,12 @@ each round is kept only if train-view PSNR improves. ``--from-scene FILE``
 skips training and runs only those rounds on an exported scene (the
 ``init`` row is then the scene's PSNR); ``--ceiling-only`` measures the
 ceiling, merges it into <out>/results.json and stops. ``--distributed``
-trains with DistributedTrainer on a (data 1, model 1) mesh, the JAX
-script's check that the sharded trainer trains as the plain one does.
+trains with DistributedTrainer, one process per card, on the mesh
+``--mesh DxM`` (data x model; by default the world's size x 1, and one
+that does not hold every rank of the world is refused): at 1 x 1 the JAX
+script's check that the sharded trainer trains as the plain one does, at
+4 x 1 config 4 data-parallel on four cards. Rank 0 writes the dataset
+(when it is generated), results.json, the previews and the scene.
 ``--device`` (cuda by default; ``--cpu`` is ``--device cpu``) is the
 port's own. The default ``--out`` is runs/c5_torch, so that the JAX
 package's runs/c5 record is never overwritten.
@@ -42,6 +46,9 @@ Usage:
       [--data DIR] [--steps 1000] [--stages 1] [--seed 0] [--device cuda]
   python -m torch.distributed.run --nproc-per-node 1 \\
       -m burn_raymarching_tpu_torch.tools.run_c5 --distributed ...
+  torchrun --nproc-per-node 4 -m burn_raymarching_tpu_torch.tools.run_c5 \\
+      --distributed --mesh 4x1 --views 30 --size 512 --gt-n 400 \\
+      --init-n 5120 --cull-budget 2048 --stages 3 --merge-cell 0.04
 """
 
 from __future__ import annotations
@@ -196,9 +203,46 @@ def make_parser() -> argparse.ArgumentParser:
              "refine 1)")
     add("--cpu", action="store_true", help="the same as --device cpu")
     add("--distributed", action="store_true",
-        help="train with DistributedTrainer on a (data 1, model 1) mesh")
+        help="train with DistributedTrainer, one process per card "
+             "(torch.distributed.run), on the --mesh")
+    add("--mesh", default=None, metavar="DxM",
+        help="with --distributed: the (data, model) mesh, e.g. 4x1 "
+             "(default: the world's size x 1)")
     add("--device", default="cuda")
     return p
+
+
+def world_mesh(text, world: int) -> tuple[int, int]:
+    """``--mesh`` ("DxM", or None for the world's size x 1) → (data,
+    model); SystemExit where the mesh does not hold the world's ranks."""
+    if text is None:
+        return world, 1
+    try:
+        data, model = (int(x) for x in text.lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"--mesh {text!r}: give it as DxM, e.g. 4x1")
+    if data < 1 or model < 1 or data * model != world:
+        raise SystemExit(f"--mesh {text} needs {data * model} ranks, the "
+                         f"world has {world}")
+    return data, model
+
+
+def make_trainer(args, cfg, dataset):
+    """The run's trainer: the single-device Trainer, or with
+    ``--distributed`` the DistributedTrainer on ``--mesh`` over the
+    initialized process group."""
+    from burn_raymarching_tpu_torch.train.loop import Trainer
+
+    if not args.distributed:
+        return Trainer(cfg, dataset)
+    import torch.distributed as dist
+
+    from burn_raymarching_tpu_torch.parallel.distributed import (
+        DistributedTrainer,
+    )
+
+    data, model = world_mesh(args.mesh, dist.get_world_size())
+    return DistributedTrainer(cfg, dataset, data=data, model=model)
 
 
 def _floats(text: str) -> tuple:
@@ -299,32 +343,40 @@ def main(argv=None) -> dict:
         raise SystemExit("--ceiling-only with --skip-ceiling measures "
                          "nothing; drop --skip-ceiling")
 
+    if args.mesh and not args.distributed:
+        raise SystemExit("--mesh takes --distributed")
+
+    from burn_raymarching_tpu_torch.parallel.mesh import (
+        init_distributed,
+        is_host0,
+    )
     from burn_raymarching_tpu_torch.tools import generate
-    from burn_raymarching_tpu_torch.train.loop import Trainer, build_dataset
+    from burn_raymarching_tpu_torch.train.loop import build_dataset
     from burn_raymarching_tpu_torch.utils.device import resolve_device
 
     data_dir = args.data or os.path.join(args.out, "data")
     os.makedirs(args.out, exist_ok=True)
     device = resolve_device(args.device)
-    if not os.path.exists(os.path.join(data_dir, "cameras.json")):
+    if args.distributed:
+        import torch.distributed as dist
+
+        init_distributed(device)
+        world_mesh(args.mesh, dist.get_world_size())
+    if is_host0() and not os.path.exists(
+            os.path.join(data_dir, "cameras.json")):
         print(f"--- generating {args.views}-view {args.size}px dataset ---")
         generate.main(generate_argv(data_dir, views=args.views,
                                     size=args.size, gt_n=args.gt_n,
                                     device=args.device))
+    if args.distributed:
+        dist.barrier()
     cfg = build_config(args, data_dir)
     dataset = build_dataset(cfg, device=device)
-    print(f"Total training pixels: {dataset.num_total_pixels} "
-          f"(fg {dataset.num_fg})")
-    if args.distributed:
-        from burn_raymarching_tpu_torch.parallel.distributed import (
-            DistributedTrainer,
-        )
-        from burn_raymarching_tpu_torch.parallel.mesh import init_distributed
-
-        init_distributed(device)
-        trainer = DistributedTrainer(cfg, dataset, data=1, model=1)
-    else:
-        trainer = Trainer(cfg, dataset)
+    trainer = make_trainer(args, cfg, dataset)
+    # Every rank trains; rank 0 speaks.
+    say = print if trainer._io else (lambda *a, **kw: None)
+    say(f"Total training pixels: {dataset.num_total_pixels} "
+        f"(fg {dataset.num_fg})")
     cams, tgts = trainer._load_views()
 
     def psnr(padded, mask, dense=False):
@@ -337,18 +389,18 @@ def main(argv=None) -> dict:
     if not args.skip_ceiling:
         results["ceiling"] = psnr(*ceiling_padded(args.gt_n, device),
                                   dense=True)
-        print(f"ceiling (GT through trainable forward): "
-              f"{results['ceiling']:.2f} dB", flush=True)
+        say(f"ceiling (GT through trainable forward): "
+            f"{results['ceiling']:.2f} dB", flush=True)
     if args.ceiling_only:
         return _ceiling_only(args, results["ceiling"])
     if args.from_scene:
         padded, mask = scene_padded(args.from_scene, device)
         results["init"] = psnr(padded, mask)
-        print(f"from-scene {args.from_scene}: {results['init']:.2f} dB",
-              flush=True)
+        say(f"from-scene {args.from_scene}: {results['init']:.2f} dB",
+            flush=True)
     else:
         results["init"] = psnr(*init_padded(trainer))
-        print(f"prior-seeded init: {results['init']:.2f} dB", flush=True)
+        say(f"prior-seeded init: {results['init']:.2f} dB", flush=True)
     results["eval_wall_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -375,9 +427,9 @@ def main(argv=None) -> dict:
                                                **refine_kw)
     results["train_wall_s"] = round(time.perf_counter() - t0, 1)
     results["trained"] = psnr(padded, mask)
-    print(f"trained ({args.steps} steps, far_field={args.far_field}): "
-          f"{results['trained']:.2f} dB [{results['train_wall_s']}s]",
-          flush=True)
+    say(f"trained ({args.steps} steps, far_field={args.far_field}): "
+        f"{results['trained']:.2f} dB [{results['train_wall_s']}s]",
+        flush=True)
 
     # The JAX script's keys, as this run had them.
     results.update({k: v for k, v in vars(args).items()
@@ -397,10 +449,8 @@ def main(argv=None) -> dict:
     if trainer._io:
         with open(os.path.join(args.out, "results.json"), "w") as f:
             json.dump(results, f, indent=1)
-    print(json.dumps(results))
+    say(json.dumps(results))
     if args.distributed:
-        import torch.distributed as dist
-
         dist.destroy_process_group()
     return results
 

@@ -332,10 +332,10 @@ def make_device_step(cfg: TrainConfig, *, march_normal_fn: Optional[Callable],
     arguments are then this rank's shards, and ``clusters`` is in the
     shard's own row ids. The step's phases are spans
     (utils/profiling.annotate: ``step.sample``, ``step.select``,
-    ``step.march``, ``step.tail``, ``step.loss``, ``step.backward``); with
-    the tracer on, a culled step adds its valid table entries to the
-    tracer's device counter and 1 to its counter ``tail.fused`` (K6) or
-    ``tail.plain``.
+    ``step.march``, ``step.tail``, ``step.loss``, ``step.backward`` and,
+    inside it over a data axis, ``step.grad_mean``); with the tracer on, a
+    culled step adds its valid table entries to the tracer's device
+    counter and 1 to its counter ``tail.fused`` (K6) or ``tail.plain``.
     """
     rc = cfg.render
     fused = uses_fused_shade(cfg, march_normal_fn, model_axis)
@@ -489,7 +489,9 @@ def make_device_step(cfg: TrainConfig, *, march_normal_fn: Optional[Callable],
             loss.backward()
             loss = loss.detach()
             if data_axis is not None:
-                loss = mean_grads(params.parameters(), data_axis, extra=loss)
+                with annotate("step.grad_mean"):
+                    loss = mean_grads(params.parameters(), data_axis,
+                                      extra=loss)
         return loss, lr
 
     return device_step

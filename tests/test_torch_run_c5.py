@@ -109,7 +109,7 @@ def test_same_argv_builds_the_same_train_config(monkeypatch, tmp_path,
 
 def test_every_flag_of_the_jax_script(monkeypatch, data_dir, tmp_path):
     """The port's parser has every option of scripts/run_c5.py with the
-    same default (and adds only --device)."""
+    same default (and adds only --device and --distributed's --mesh)."""
     seen = {}
 
     def capture(self, argv=None, namespace=None):
@@ -124,7 +124,7 @@ def test_every_flag_of_the_jax_script(monkeypatch, data_dir, tmp_path):
             for a in seen["parser"]._actions if a.dest != "help"}
     got = {a.dest: (tuple(a.option_strings), a.default)
            for a in run_c5.make_parser()._actions if a.dest != "help"}
-    assert set(got) - set(want) == {"device"}
+    assert set(got) - set(want) == {"device", "mesh"}
     for dest, (opts, default) in want.items():
         assert got[dest][0] == opts, dest
         if dest != "out":    # the port writes runs/c5_torch, not runs/c5

@@ -561,3 +561,81 @@ def sharded_chunks_with_draws(rank, world, data, model, cfg_kw,
         runner.run(start + 1, chunk)
         losses.append(float(runner.loss))
     return {"losses": losses, "schedule": seen}
+
+
+def dp_checked_run(rank, world, cfg_kw, dataset_arrays, out_dir, n_steps):
+    """DistributedTrainer at world x 1 as the benchmark's data-parallel
+    cell drives it (benchmark/harness/train.py's ``check_steps`` and
+    ``BoundaryProbe``): the first ``n_steps`` steps of a run one at a
+    time, then the run again through its first stage boundary and the
+    next stage's first ``n_steps`` steps → what both kept (each step's
+    loss, this rank's draws, the stage-start parameters, the gradient as
+    Adam holds it after the first step, the parameters after the last;
+    density control's input and answer), on the host."""
+    from benchmark.harness.train import BoundaryProbe, _on_cpu, check_steps
+    from burn_raymarching_tpu_torch.config import TrainConfig
+    from burn_raymarching_tpu_torch.data.dataset import RayDataset
+    from burn_raymarching_tpu_torch.parallel.distributed import (
+        DistributedTrainer,
+    )
+    from burn_raymarching_tpu_torch.train import loop, step_body
+
+    os.makedirs(os.path.join(out_dir, f"rank{rank}"), exist_ok=True)
+    os.chdir(os.path.join(out_dir, f"rank{rank}"))
+    cfg = TrainConfig(**cfg_kw)
+    tr = DistributedTrainer(cfg, RayDataset(*dataset_arrays, device="cpu"),
+                            data=world, model=1, log=lambda s: None)
+    got = check_steps(tr, loop, step_body, n_steps)
+
+    class Stop(Exception):
+        pass
+
+    probe = BoundaryProbe(n_steps)
+    probe.wrap(tr)
+    base = loop.ChunkRunner
+
+    class Runner(base):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.probed = probe.starts(self)
+
+        def run(self, first, n):
+            if self.probed:
+                probe.record(super().run, self, first, n)
+                raise Stop
+            super().run(first, n)
+
+    loop.ChunkRunner = Runner
+    try:
+        tr.run()
+    except Stop:
+        pass
+    finally:
+        loop.ChunkRunner = base
+    return {"got": got, "boundary": _on_cpu(probe.got), "seed": probe.seed}
+
+
+def run_c5_mesh(rank, world, cfg_kw, dataset_arrays):
+    """tools/run_c5's mesh on a world of ranks: the trainer it builds for
+    ``--distributed`` with the default mesh and with ``--mesh`` given, and
+    the message of each mesh it refuses."""
+    import argparse
+
+    from burn_raymarching_tpu_torch.config import TrainConfig
+    from burn_raymarching_tpu_torch.data.dataset import RayDataset
+    from burn_raymarching_tpu_torch.tools import run_c5
+
+    cfg = TrainConfig(**cfg_kw)
+    ds = RayDataset(*dataset_arrays, device="cpu")
+    out = {"meshes": {}, "refused": {}}
+    for text in (None, f"{world}x1"):
+        args = argparse.Namespace(distributed=True, mesh=text)
+        (ran,) = [e for e in run_c5.make_trainer(args, cfg, ds).events
+                  if e["kind"] == "graphs"]
+        out["meshes"][str(text)] = ran["mesh"]
+    for text in (f"{2 * world}x1", "1x1", f"1x{world + 1}", "four"):
+        try:
+            run_c5.world_mesh(text, world)
+        except SystemExit as e:
+            out["refused"][text] = str(e)
+    return out
