@@ -277,3 +277,14 @@ def gather_tile_tables(centers: torch.Tensor, colors: torch.Tensor,
     c_sq = torch.sum(centers_t * centers_t, dim=2)
     c_sq = torch.where(valid, c_sq, torch.full_like(c_sq, 1e30))
     return centers_t, colors_t, radii_t, c_sq
+
+
+def selected_tables(centers: torch.Tensor, radii: torch.Tensor,
+                    idx: torch.Tensor, valid: torch.Tensor):
+    """The march's per-tile tables of a selection → (cs [B,K,3], rs [B,K],
+    qs [B,K]: |c|² with 1e30 in invalid slots)."""
+    cs = centers[idx]
+    rs = radii.reshape(-1)[idx]
+    qs = torch.where(valid, torch.sum(cs * cs, dim=2),
+                     torch.full_like(rs, 1e30))
+    return cs, rs, qs

@@ -7,9 +7,10 @@ the full [N, M] matrix. Rays must be tile-coherent: Morton pixel order for
 rendering, sorted indices for training batches.
 
 ``culled_march_normals_xla`` is the plain PyTorch version of the K3 kernel
-(ops/cuda/culled_march_kernel.py). The gradient-carrying tail of
-``render_diff_culled`` stays plain autograd, as the JAX package keeps it in
-XLA.
+(ops/cuda/culled_march_kernel.py). Flat selection goes through
+``tile_select`` (K7 on CUDA tensors, ops/cuda/tile_select_kernel.py). The
+gradient-carrying tail of ``render_diff_culled`` stays plain autograd, as
+the JAX package keeps it in XLA.
 
 With ``model_axis`` (a parallel.collectives.Axis) the primitive arguments
 are this rank's shard of an M-sharded table and every rank selects its own
@@ -24,10 +25,10 @@ from typing import Optional
 
 import torch
 
+from burn_raymarching_tpu_torch.ops.cuda.tile_select_kernel import tile_select
 from burn_raymarching_tpu_torch.ops.culling import (
     PrimitiveClusters,
     gather_tile_tables,
-    select_tile_primitives,
     select_tile_primitives_hier,
     tile_cones,
 )
@@ -177,15 +178,14 @@ def render_diff_culled(
         idx, valid, t, normal = precomputed
         t, normal = t.detach(), normal.detach()
     else:
-        cones = tile_cones(ray_org, ray_dir, tile)
         c_det, r_det = centers.detach(), radii.detach()
         if clusters is not None:
             idx, valid = select_tile_primitives_hier(
-                cones, c_det, r_det, smooth_k, k_budget, clusters,
-                cluster_budget, mask=mask)
+                tile_cones(ray_org, ray_dir, tile), c_det, r_det, smooth_k,
+                k_budget, clusters, cluster_budget, mask=mask)
         else:
-            idx, valid = select_tile_primitives(cones, c_det, r_det,
-                                                smooth_k, k_budget, mask=mask)
+            idx, valid = tile_select(ray_org, ray_dir, tile, c_det, r_det,
+                                     smooth_k, k_budget, mask)[:2]
     centers_t, colors_t, radii_t, c_sq_t = gather_tile_tables(
         centers, colors, radii, idx, valid)
 

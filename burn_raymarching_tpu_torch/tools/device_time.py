@@ -29,7 +29,8 @@ from burn_raymarching_tpu_torch.utils.profiling import WINDOW_MARGIN_S
 HAND_KERNELS = ("march_shade_kernel", "march_pack_kernel",
                 "culled_march_kernel", "shade_pack_kernel",
                 "shade_fwd_kernel", "shade_bwd_kernel", "rep_fwd_kernel",
-                "rep_bwd_kernel", "ctail_fwd_kernel", "ctail_bwd_kernel")
+                "rep_bwd_kernel", "ctail_fwd_kernel", "ctail_bwd_kernel",
+                "tile_select_kernel")
 
 
 # Host calls that put work on a stream, as the trace names them.

@@ -20,9 +20,9 @@ stage boundaries, under ``torch.no_grad()``.
 The scores feed an ``argsort`` (train/density.py), so they have to be
 repeatable run to run: the per-tile contributions are not added with a
 float-atomic ``index_add_``. Within one tile the top-K indices are distinct
-(they are a prefix of a sort permutation), so each tile's row is written
-with ``scatter_`` into a [B, m_pad] buffer and the rows are added with
-``sum(0)``, a fixed-order reduction.
+(a prefix of a permutation of the rows, the plain sort's or K7's), so each
+tile's row is written with ``scatter_`` into a [B, m_pad] buffer and the
+rows are added with ``sum(0)``, a fixed-order reduction.
 """
 
 from __future__ import annotations
@@ -34,10 +34,7 @@ import torch
 
 from burn_raymarching_tpu_torch.config import TrainConfig
 from burn_raymarching_tpu_torch.models.scene import SceneParams, activate
-from burn_raymarching_tpu_torch.ops.culling import (
-    select_tile_primitives,
-    tile_cones,
-)
+from burn_raymarching_tpu_torch.ops.cuda.tile_select_kernel import tile_select
 from burn_raymarching_tpu_torch.ops.sdf import MASKED_NEG
 from burn_raymarching_tpu_torch.render.culled import (
     _tile_dists,
@@ -61,14 +58,9 @@ def _score_chunk_culled(padded: SceneParams, mask: torch.Tensor,
     tile = cfg.cull_tile
     m_pad = padded.centers.shape[0]
     centers_p, colors_p, radii_p, light_dir, ambient = activate(padded)
-    cones = tile_cones(ro, rd, tile)
-    idx_t, valid_t = select_tile_primitives(
-        cones, centers_p, radii_p, smooth_k, cfg.cull_budget, mask=mask)
-    cs = centers_p[idx_t]
+    idx_t, valid_t, cs, rs, qs = tile_select(
+        ro, rd, tile, centers_p, radii_p, smooth_k, cfg.cull_budget, mask)
     cols = colors_p[idx_t]
-    rs = radii_p.reshape(-1)[idx_t]
-    qs = torch.where(valid_t, torch.sum(cs * cs, dim=2),
-                     torch.full_like(rs, 1e30))
     b = ro.shape[0] // tile
     ro3 = ro.reshape(b, tile, 3)
     rd3 = rd.reshape(b, tile, 3)

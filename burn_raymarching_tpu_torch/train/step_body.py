@@ -64,10 +64,11 @@ from burn_raymarching_tpu_torch.ops.cuda.culled_shade_kernel import (
     culled_shade,
 )
 from burn_raymarching_tpu_torch.ops.cuda.shade_kernel import shade_fused
+from burn_raymarching_tpu_torch.ops.cuda.tile_select_kernel import tile_select
 from burn_raymarching_tpu_torch.ops.culling import (
     gather_tile_tables,
-    select_tile_primitives,
     select_tile_primitives_hier,
+    selected_tables,
     tile_cones,
 )
 from burn_raymarching_tpu_torch.parallel.collectives import (
@@ -236,20 +237,15 @@ def culled_tables(cfg: TrainConfig, ro: torch.Tensor, rd: torch.Tensor,
                   centers: torch.Tensor, radii: torch.Tensor, smooth_k,
                   mask: Optional[torch.Tensor], clusters=None):
     """Detached per-tile selection → (idx [B,K], valid [B,K], cs [B,K,3],
-    rs [B,K], qs [B,K] with 1e30 in invalid slots)."""
-    cones = tile_cones(ro, rd, cfg.cull_tile)
-    if clusters is not None:
-        idx, valid = select_tile_primitives_hier(
-            cones, centers, radii, smooth_k, cfg.cull_budget, clusters,
-            cfg.cull_cluster_budget, mask=mask)
-    else:
-        idx, valid = select_tile_primitives(cones, centers, radii, smooth_k,
-                                            cfg.cull_budget, mask=mask)
-    cs = centers[idx]
-    rs = radii.reshape(-1)[idx]
-    qs = torch.where(valid, torch.sum(cs * cs, dim=2),
-                     torch.full_like(rs, 1e30))
-    return idx, valid, cs, rs, qs
+    rs [B,K], qs [B,K] with 1e30 in invalid slots): flat selection through
+    ``tile_select`` (K7 on CUDA tensors), hierarchical with ``clusters``."""
+    if clusters is None:
+        return tile_select(ro, rd, cfg.cull_tile, centers, radii, smooth_k,
+                           cfg.cull_budget, mask)
+    idx, valid = select_tile_primitives_hier(
+        tile_cones(ro, rd, cfg.cull_tile), centers, radii, smooth_k,
+        cfg.cull_budget, clusters, cfg.cull_cluster_budget, mask=mask)
+    return (idx, valid) + selected_tables(centers, radii, idx, valid)
 
 
 def sharded_culled_kernel_march(

@@ -41,7 +41,15 @@ non-zero without the final result line:
                    and monopole, at C = 80 (config 4) and C = 800
                    (M = 51,200), with a bitwise repeat check of its
                    results and its sums over blocks against one PyTorch
-                   ``sum`` of the same parts;
+                   ``sum`` of the same parts; K7 (flat per-tile selection)
+                   on the same 32 ray tiles at config 4's step table
+                   (8,192 slots, K = 2,048), a later stage's prefill table
+                   (2,048 slots, K = 2,048) and the bench flagship's
+                   prefill (51,200 rows, K = 256): its cones against
+                   tile_cones, its tables against the plain selection on
+                   its own cones (k7_compare), its gathers bitwise, a
+                   repeat and a graph replay bitwise, timed beside the
+                   plain selection;
   5. generate    — the port's generator writes the dango dataset (10 views at
                    256²) into a temporary directory;
   6. train       — train_cli at config-1 width (batch 16,384, reference init,
@@ -213,7 +221,7 @@ version, and timed beside the fixed-count launch.
 The line before the last is {"kernels": [...]}: per kernel its launches on
 the training path (``launches``; a kernel that a CUDA-graph replay launches
 counts once per replay, train/chunk.py), on the quality path that runs it
-(``launches_quality``: phase 9 for K3 and K4, phase 10 for K1 and K2), on
+(``launches_quality``: phase 9 for K3, K4 and K7, phase 10 for K1 and K2), on
 the config-5 path (``launches_c5``), on the distributed paths
 (``launches_distributed``), on the viewer's (``launches_viewer``), on
 the bench's (``launches_bench``: its three variants and the flagship) and
@@ -258,7 +266,7 @@ K2_NARROW = (10, 16)
 # run's ~30 dB, far above the ~10 dB of an untrained or broken scene.
 MIN_PSNR_DB = 15.0
 LIBRARIES = ("march_shade", "shade", "culled_march", "culled_shade",
-             "repulsion", "march_variants", "noop")
+             "repulsion", "tile_select", "march_variants", "noop")
 # Config 4 (runs/c4_r2): the knot capture, the prior-seeded init and the
 # per-tile top-K budget.
 C4_VIEWS, C4_SIZE, C4_GT_N, C4_INIT_N = 30, 512, 400, 5120
@@ -1019,6 +1027,177 @@ def k6_case(torch, dev, args, label: str, failures: list) -> dict:
     return case
 
 
+# K7's shapes, on config 4's 32 ray tiles: (label, seeded spheres, rows,
+# K). The step's table (5,120 spheres in 8,192 slots, K = 2,048); a later
+# stage's prefill, whose ~1,340 spheres fill 2,048 slots and K holds every
+# row; the bench flagship's prefill (51,200 rows, K = 256), where tiles keep
+# more rows than K and than shared memory holds.
+K7_SHAPES = (("c4_step", C4_INIT_N, None, C4_BUDGET),
+             ("c4_prefill", 1340, None, C4_BUDGET),
+             ("flagship", LARGE_INIT_N, LARGE_INIT_N, 256))
+# Scores this close (relative to 1 + |score|) may be ordered, or cut, apart
+# by the kernel and the plain selection: the two round a few operations
+# differently (PyTorch's reduction orders).
+K7_SCORE_TOL = 1e-6
+# K7's cones (apex, axis, cos_half, origin_spread) against tile_cones': the
+# kernel sums the means in another order. The slots are held against the
+# plain selection on K7's own cones (K7_SCORE_TOL), so a wrong cone fails
+# here: on config 4's narrow tiles a cone gap of ~4e-7 already moves scores
+# by ~2e-5 of 1 + |score|, which puts the slots past K7_SCORE_TOL.
+K7_CONE_TOL = 1e-6
+
+
+def k7_compare(torch, ro, rd, c, r, k, budget, mask, out) -> dict:
+    """K7's output ``out`` (launch_tile_select's six tensors, with_cones)
+    against the plain selection (select_tile_primitives) run on K7's own
+    cones: every slot equal but where a score lies within K7_SCORE_TOL of
+    the one the plain table holds there (a swap of near-equal neighbours),
+    of the tile's cutoff or, in a tile keeping more than K, of its K-th
+    score; the invalid tail ascending; cs, rs, qs bitwise the gathers of
+    K7's idx; the cones within K7_CONE_TOL of tile_cones' → counts ("bad"
+    must be 0)."""
+    import numpy as np
+
+    from burn_raymarching_tpu_torch.ops.culling import (
+        CULL_MARGIN,
+        TileCones,
+        cone_point_distance,
+        select_tile_primitives,
+        selected_tables,
+        tile_cones,
+    )
+
+    idx, valid, cs, rs, qs, cones = out
+    tile = ro.shape[0] // idx.shape[0]
+    own = TileCones(cones[:, 0:3], cones[:, 3:6], cones[:, 6], cones[:, 7])
+    cone_gap = max(float((a - b).abs().max())
+                   for a, b in zip(own, tile_cones(ro, rd, tile)))
+    idx_p, valid_p = select_tile_primitives(own, c, r, k, budget, mask=mask)
+    score = cone_point_distance(own, c) - r.reshape(1, -1)
+    cutoff = CULL_MARGIN / float(k) + own.origin_spread
+    kept = score <= cutoff[:, None]
+    if mask is not None:
+        kept = kept & mask.reshape(1, -1).bool()
+    s, cut = score.cpu().numpy(), cutoff.cpu().numpy()
+    n_kept = kept.sum(dim=1).cpu().numpy()
+    ik, vk = idx.cpu().numpy(), valid.cpu().numpy()
+    ip, vp = idx_p.cpu().numpy(), valid_p.cpu().numpy()
+    kk = ik.shape[1]
+
+    def near(x, y):
+        return abs(float(x) - float(y)) <= K7_SCORE_TOL * (1.0 + abs(float(y)))
+
+    bad = near_swaps = 0
+    for b in np.nonzero((ik != ip).any(axis=1) | (vk != vp).any(axis=1))[0]:
+        kth = s[b, ip[b, kk - 1]] if n_kept[b] > kk else None
+        for j in np.nonzero((ik[b] != ip[b]) | (vk[b] != vp[b]))[0]:
+            a, p = ik[b, j], ip[b, j]
+            if vk[b, j] and vp[b, j]:
+                ok = near(s[b, a], s[b, p])
+            elif vk[b, j] or vp[b, j]:
+                row = a if vk[b, j] else p
+                ok = near(s[b, row], cut[b]) or (
+                    kth is not None and near(s[b, row], kth))
+            else:
+                # Two invalid rows: the tails differ only if the kept sets do.
+                ok = not np.array_equal(np.sort(ik[b][vk[b]]),
+                                        np.sort(ip[b][vp[b]]))
+            bad += not ok
+            near_swaps += 1
+    tail_ascending = all(bool(np.all(np.diff(ik[b][~vk[b]]) > 0))
+                         for b in range(ik.shape[0]))
+    gathers = all(torch.equal(a, b) for a, b in
+                  zip((cs, rs, qs), selected_tables(c, r, idx, valid)))
+    bad += ((not tail_ascending) + (not gathers)
+            + (not cone_gap <= K7_CONE_TOL))
+    return {"bad": int(bad), "slots_apart_within_tol": int(near_swaps),
+            "tiles_equal": int(((ik == ip).all(axis=1)
+                                & (vk == vp).all(axis=1)).sum()),
+            "tiles": int(ik.shape[0]), "tail_ascending": tail_ascending,
+            "gathers_bitwise": gathers, "cone_max_abs_gap": cone_gap,
+            "kept_per_tile_max": int(n_kept.max()),
+            "tiles_over_k": int((n_kept > kk).sum()),
+            "valid_slots": int(vk.sum())}
+
+
+def k7_bound(ro, rows: int, tiles: int, slots: int) -> dict:
+    """K7's least time: the rays, the table (centers, radius, mask byte)
+    and the K slots written (idx 8, valid 1, cs 12, rs 4, qs 4 bytes) once;
+    per (tile, row) 3 SFU operations (two sqrt, a divide) and ~25 other
+    FP32 ones, per ray 1 sqrt and ~20 FP32 for the cone."""
+    rays = ro.shape[0]
+    return bound(2 * tensor_bytes(ro) + 17.0 * rows + 29.0 * tiles * slots,
+                 sfu_ops=3.0 * tiles * rows + rays,
+                 flops=25.0 * tiles * rows + 20.0 * rays)
+
+
+def k7_cases(torch, dev, args, c4_c, c4_r, c4_mask, failures: list) -> dict:
+    """K7 at K7_SHAPES on config 4's tiles (K3's inputs ``args``): checked
+    by k7_compare, a repeat and a replay of a captured launch bitwise equal,
+    timed (wrapper, device, plain) → the kernel table's row (the step's
+    shape) with the other shapes' figures beside it."""
+    from burn_raymarching_tpu_torch.ops.cuda import tile_select_kernel as k7
+
+    ro, rd = args[0].reshape(-1, 3), args[1].reshape(-1, 3)
+    tiles = args[0].shape[0]
+    row = {}
+    for label, n, rows, budget in K7_SHAPES:
+        if n == C4_INIT_N:
+            c, r, mask = c4_c, c4_r, c4_mask
+        else:
+            _, mask, c, r = knot_cloud(torch, dev, n)
+        if rows is not None:
+            c, r, mask = (c[:rows].contiguous(), r[:rows].contiguous(),
+                          mask[:rows].contiguous())
+        call = (ro, rd, C4_TILE, c, r, C4_K, budget, mask)
+        before = k7.launch_tile_select.launches
+        out = k7.launch_tile_select(*call, with_cones=True)
+        launches = k7.launch_tile_select.launches - before
+        torch.cuda.synchronize()
+        cmp = k7_compare(torch, ro, rd, c, r, C4_K, budget, mask, out)
+        again = k7.launch_tile_select(*call, with_cones=True)
+        static = [x.clone() for x in again]
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            with torch.cuda.graph(graph, stream=side):
+                captured = k7.launch_tile_select(*call, with_cones=True)
+        graph.replay()
+        torch.cuda.synchronize()
+        repeat = all(torch.equal(a, b) for a, b in zip(out, static))
+        replay = all(torch.equal(a, b) for a, b in zip(out, captured))
+        if cmp["bad"] or not repeat or not replay:
+            failures.append(f"K7 {label}: {cmp}, repeat {repeat}, graph "
+                            f"replay {replay}")
+        kk = out[0].shape[1]
+        case = dict(rows=int(c.shape[0]), live=int(mask.sum()), table=kk,
+                    **cmp, repeat_bitwise=repeat, replay_bitwise=replay,
+                    launches_per_call=launches,
+                    ms=time_ms(torch, lambda: k7.tile_select(*call)),
+                    device_ms=graph_ms(
+                        torch, lambda: k7.launch_tile_select(*call)),
+                    plain_ms=time_ms(
+                        torch, lambda: k7.tile_select_plain(*call), reps=5),
+                    plain_device_ms=graph_ms(
+                        torch, lambda: k7.tile_select_plain(*call),
+                        launches=2, reps=3),
+                    **k7_bound(ro, int(c.shape[0]), tiles, kk))
+        emit("kernel", name=f"tile_select_{label}", rays_per_tile=C4_TILE,
+             smooth_k=C4_K, **case)
+        row[label] = case
+    main = row["c4_step"]
+    return dict(max_abs_err=None, mismatches_outside_tol=main["bad"],
+                slots_apart_within_tol=main[
+                    "slots_apart_within_tol"],
+                ms=main["ms"], device_ms=main["device_ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], library_ms=None,
+                **{f"{label}_{key}": row[label][key]
+                   for label in ("c4_prefill", "flagship")
+                   for key in ("device_ms", "plain_ms", "bound_ms")})
+
+
 # K4 tolerances, relative to the plain value or the plain gradient's
 # largest entry: float32 sums of 2.6 M (C = 80) to 67 M (C = 800) pair
 # terms, taken in another order.
@@ -1260,6 +1439,9 @@ def phase_kernels_c4(torch, dev) -> dict:
             **k6_main[f"{part}_bound"], library_ms=None,
             full_tables_device_ms=k6_full[f"{part}_device_ms"])
 
+    results["tile_select"] = k7_cases(torch, dev, args, c, r, mask,
+                                      failures)
+
     cases = {}
     for n, far_field in ((C4_INIT_N, "member"), (C4_INIT_N, "monopole"),
                          (LARGE_INIT_N, "member"),
@@ -1369,7 +1551,8 @@ TRACE_NAMES = {"march_shade_kernel": "march_shade",
                "ctail_fwd_kernel": "culled_shade_fwd",
                "ctail_bwd_kernel": "culled_shade_bwd",
                "rep_fwd_kernel": "repulsion_fwd",
-               "rep_bwd_kernel": "repulsion_bwd"}
+               "rep_bwd_kernel": "repulsion_bwd",
+               "tile_select_kernel": "tile_select"}
 CHUNK_STEPS = 100
 
 
@@ -1587,11 +1770,12 @@ def trainer_on_scene(torch, dev, argv: list, scene: str):
 
 def phase_c4(torch, dev, tmp: str) -> dict:
     """generate_c4 + train_c4 in ``tmp`` (the knot set stays in
-    ``tmp``/data_c4, the trained scene in ``tmp``/scene_c5.json) → K3 and
-    K4's launch counts on that path."""
+    ``tmp``/data_c4, the trained scene in ``tmp``/scene_c5.json) → K3's,
+    K4's, K6's and K7's launch counts on that path."""
     from burn_raymarching_tpu_torch.ops.cuda import culled_march_kernel as k3
     from burn_raymarching_tpu_torch.ops.cuda import culled_shade_kernel as k6
     from burn_raymarching_tpu_torch.ops.cuda import repulsion_kernel as k4
+    from burn_raymarching_tpu_torch.ops.cuda import tile_select_kernel as k7
     from burn_raymarching_tpu_torch.tools import generate, run_c5
     from burn_raymarching_tpu_torch.train.loop import Trainer
 
@@ -1599,7 +1783,8 @@ def phase_c4(torch, dev, tmp: str) -> dict:
                 "culled_shade_fwd": k6.launch_ctail_fwd,
                 "culled_shade_bwd": k6.launch_ctail_bwd,
                 "repulsion_fwd": k4.launch_rep_fwd,
-                "repulsion_bwd": k4.launch_rep_bwd}
+                "repulsion_bwd": k4.launch_rep_bwd,
+                "tile_select": k7.launch_tile_select}
     data = os.path.join(tmp, "data_c4")
     t0 = time.perf_counter()
     generate.main(run_c5.generate_argv(data, views=C4_VIEWS,
@@ -1679,8 +1864,8 @@ def headline_argv(data: str, out: str) -> list:
 
 def phase_refine_c4(torch, dev, tmp: str) -> tuple[dict, dict]:
     """The quality recipe on the knot set that phase_c4 left in ``tmp`` →
-    (K3's launch count on this path, K3's figures at the acceptance loss's
-    shape)."""
+    (K3's, K4's and K7's launch counts on this path, K3's figures at the
+    acceptance loss's shape)."""
     import numpy as np
 
     from burn_raymarching_tpu_torch.ops.cuda import culled_march_kernel as k3
@@ -1699,6 +1884,7 @@ def phase_refine_c4(torch, dev, tmp: str) -> tuple[dict, dict]:
 
     from burn_raymarching_tpu_torch.data.scene_io import load_scene_json
     from burn_raymarching_tpu_torch.ops.cuda import repulsion_kernel as k4
+    from burn_raymarching_tpu_torch.ops.cuda import tile_select_kernel as k7
 
     data = os.path.join(tmp, "data_c4")
     out = os.path.join(tmp, "refine")
@@ -1707,7 +1893,8 @@ def phase_refine_c4(torch, dev, tmp: str) -> tuple[dict, dict]:
                     "--refine-fringe", "4", "--refine-light", "8"]
     counters = {"culled_march": k3.culled_march_normals,
                 "repulsion_fwd": k4.launch_rep_fwd,
-                "repulsion_bwd": k4.launch_rep_bwd}
+                "repulsion_bwd": k4.launch_rep_bwd,
+                "tile_select": k7.launch_tile_select}
 
     def gated_run(argv):
         """tools/run_c5.py with every count of this path set to 0 just
@@ -1943,11 +2130,14 @@ def kernel_counters() -> dict:
     from burn_raymarching_tpu_torch.ops.cuda import culled_shade_kernel as k6
     from burn_raymarching_tpu_torch.ops.cuda import repulsion_kernel as k4
 
+    from burn_raymarching_tpu_torch.ops.cuda import tile_select_kernel as k7
+
     return {**c1_counters(), "culled_march": k3.culled_march_normals,
             "culled_shade_fwd": k6.launch_ctail_fwd,
             "culled_shade_bwd": k6.launch_ctail_bwd,
             "repulsion_fwd": k4.launch_rep_fwd,
-            "repulsion_bwd": k4.launch_rep_bwd}
+            "repulsion_bwd": k4.launch_rep_bwd,
+            "tile_select": k7.launch_tile_select}
 
 
 def counted(torch, run, counters: dict | None = None) -> tuple:
@@ -2755,6 +2945,8 @@ SOURCES = {
                       _PALLAS + "repulsion_kernel.py:205"),
     "repulsion_bwd": (_CSRC + "repulsion.cu",
                       _PALLAS + "repulsion_kernel.py:227"),
+    # K7: no TPU kernel (the JAX package leaves selection to XLA).
+    "tile_select": (_CSRC + "tile_select.cu", None),
     # K5: on no training or quality path; phase 17 drives it.
     "march_variants": (_CSRC + "march_variants.cu",
                        _SCRIPTS + "exp_march_variants.py:116"),
