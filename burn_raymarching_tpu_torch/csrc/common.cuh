@@ -66,18 +66,13 @@ __device__ __forceinline__ float expanded_q(float px, float py, float pz,
 // The per-pair sqrt and exp are the SFU's own sqrt and 2^x (sqrt.approx.ftz,
 // ex2.approx.ftz of x log2(e)): ~2 ulp each, below the float32 noise the
 // expanded form already carries near a surface (ulp(|p|^2) ~ 1e-7 against
-// q ~ 1e-3), and judged by the float64 march in chip_smoke.py; sqrtf/expf
+// q ~ 1e-3), and judged by the float64 march in the kernel tests; sqrtf/expf
 // measured 1.6x slower on an H100 with the same gap to float64. The
 // per-evaluation log, the lane rescale and the normal's sqrt are full
 // precision.
 #define MARCH_T_MAX 1e4f
 // |c|^2 at or above this marks a masked slot (the wrappers write 1e30).
 #define MARCH_MASKED_CSQ 1e29f
-// Early exit (K1's option): a ray is live while its last step was longer
-// than MARCH_CONV_TOL and it has not passed MARCH_MISS_T, beyond which no
-// ray can still hit a scene inside |c| <= 1.2 + r.
-#define MARCH_CONV_TOL 1e-5f
-#define MARCH_MISS_T 40.0f
 #define MARCH_LOG2E 1.4426950408889634f
 // CLAMP's ceiling on a pair's value (the TPU variant's min(val, 80)).
 #define MARCH_CLAMP_VAL 80.0f
@@ -386,17 +381,9 @@ __device__ __forceinline__ void softmin_points(const Tab& tab, int g,
 // central-difference normals with +1e-6 inside the sqrt. ``ray[i]`` indexes
 // ro/rd/t0/t_out/n_out; rays with ``store[i]`` false are marched (block
 // barriers stay uniform) and not written. Lane ``g`` == 0 writes.
-//
-// EXIT ends the iterations early: after each step the rays vote, and when no
-// stored ray of the voting set is live the march goes straight to the
-// reattach evaluation. The voting set is the warp (__any_sync) while the
-// table is resident, and the block (__syncthreads_or) when it is staged
-// chunk by chunk, because every thread of the block then has to make the
-// same soft-min calls. No ray is frozen: a converged ray keeps stepping
-// while another ray of its set is live, each such step under MARCH_CONV_TOL.
 // CLAMP, EXP2, COORD: softmin_points' switches.
-template <int L, int R, bool FOLD, bool EXIT = false, bool CLAMP = false,
-          bool EXP2 = false, bool COORD = false, class Tab>
+template <int L, int R, bool FOLD, bool CLAMP = false, bool EXP2 = false,
+          bool COORD = false, class Tab>
 __device__ __forceinline__ void march_rays(
     const Tab& tab, int g, const float* __restrict__ ro,
     const float* __restrict__ rd, const float* __restrict__ t0,
@@ -422,16 +409,6 @@ __device__ __forceinline__ void march_rays(
     if (it < num_steps) {
 #pragma unroll
       for (int i = 0; i < R; ++i) t[i] = fminf(t[i] + sm[i], MARCH_T_MAX);
-      if (EXIT) {
-        bool live = false;
-#pragma unroll
-        for (int i = 0; i < R; ++i)
-          live |= store[i] && fabsf(sm[i]) > MARCH_CONV_TOL &&
-                  t[i] < MARCH_MISS_T;
-        const bool any = tab.resident ? __any_sync(FULL_MASK, live) != 0
-                                      : __syncthreads_or(live) != 0;
-        if (!any) it = num_steps - 1;  // the next pass is the reattach one
-      }
     }
   }
   // Detached reattach point -> p_final, kept in (ox, oy, oz).
@@ -518,8 +495,8 @@ static inline unsigned dense_blocks(int n, int lanes) {
 // global table set by the caller), then marches this thread's lane group's
 // rays. Groups past the last ray march a copy of it and store nothing, so
 // block barriers and warp shuffles stay uniform.
-template <int L, bool EXIT, bool CLAMP = false, bool EXP2 = false,
-          bool COORD = false, class Tab>
+template <int L, bool CLAMP = false, bool EXP2 = false, bool COORD = false,
+          class Tab>
 __device__ __forceinline__ void dense_march(
     Tab& tab, int m, const float* __restrict__ ro,
     const float* __restrict__ rd, const float* __restrict__ t0, int n,
@@ -548,7 +525,7 @@ __device__ __forceinline__ void dense_march(
     store[i] = r < n;
     ray[i] = (size_t)(r < n ? r : n - 1);
   }
-  march_rays<L, MS_RAYS, true, EXIT, CLAMP, EXP2, COORD>(
+  march_rays<L, MS_RAYS, true, CLAMP, EXP2, COORD>(
       tab, lane % L, ro, rd, t0, ray, store, k, num_steps, normal_eps, t_out,
       n_out);
 }

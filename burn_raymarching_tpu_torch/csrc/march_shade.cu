@@ -27,15 +27,15 @@
 // (d) the [M, 5] table is staged once per block as float4 + float when its
 //     live columns fit MS_CHUNK, and chunk by chunk otherwise, so there is
 //     no M cap: the TPU kernel's M <= 32768 cap was a VMEM limit.
-// (e) the TPU kernel's optional early exit (its while_loop over a 1,024-ray
-//     tile) is the EXIT template flag of the march core: the voting set is
-//     the warp, or the block for a chunked table. Converged rays stop up to
-//     num_steps * 1e-5 short of where the fixed-count march leaves them.
+//
+// The TPU kernel's optional early exit (its while_loop over a 1,024-ray
+// tile; no caller of either package sets it) is not ported: measured on an
+// H100 it was 1-12% slower than the fixed count at config 1's widths.
 #include "common.cuh"
 
 // The block shape, the lane rule (pick_lanes) and the kernel body
 // (dense_march) are common.cuh's, shared with K5.
-template <int L, bool EXIT>
+template <int L>
 __global__ void __launch_bounds__(MS_WARPS * 32)
 march_shade_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
                    const float* __restrict__ t0,
@@ -45,19 +45,17 @@ march_shade_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
                    float* __restrict__ n_out) {
   MarchTable tab;
   tab.g = prim;
-  dense_march<L, EXIT>(tab, m, ro, rd, t0, n, __ldg(kp), num_steps,
-                       normal_eps, t_out, n_out);
+  dense_march<L>(tab, m, ro, rd, t0, n, __ldg(kp), num_steps, normal_eps,
+                 t_out, n_out);
 }
 
-template <int L, bool EXIT>
+template <int L>
 static int launch_lanes(const float* ro, const float* rd, const float* t0,
                         const float* prim, int n, int m, const float* k,
                         int num_steps, float normal_eps, float* t_out,
                         float* n_out, cudaStream_t stream) {
-  march_shade_kernel<L, EXIT><<<dense_blocks(n, L), MS_WARPS * 32, 0,
-                                stream>>>(ro, rd, t0, prim, n, m, k,
-                                          num_steps, normal_eps, t_out,
-                                          n_out);
+  march_shade_kernel<L><<<dense_blocks(n, L), MS_WARPS * 32, 0, stream>>>(
+      ro, rd, t0, prim, n, m, k, num_steps, normal_eps, t_out, n_out);
   return (int)cudaGetLastError();
 }
 
@@ -65,23 +63,18 @@ static int launch_lanes(const float* ro, const float* rd, const float* t0,
 // 1e30 in the |c|^2 of masked slots (march_pack_launch writes it); k [1] the
 // soft-min sharpness in device memory, read when the kernel runs (the TPU
 // kernel's SMEM operand), so a captured launch follows its value. Writes
-// t_out [n], n_out [n,3]. ``early_exit`` != 0 picks the EXIT instantiation.
-// Returns a CUDA error code.
+// t_out [n], n_out [n,3]. Returns a CUDA error code.
 extern "C" int march_shade_launch(const float* ro, const float* rd,
                                   const float* t0, const float* prim, int n,
                                   int m, const float* k, int num_steps,
-                                  float normal_eps, int early_exit,
-                                  float* t_out, float* n_out, void* stream) {
+                                  float normal_eps, float* t_out,
+                                  float* n_out, void* stream) {
   if (n < 1 || m < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
 #define MS_CASE(L)                                                          \
   case L:                                                                   \
-    return early_exit                                                       \
-               ? launch_lanes<L, true>(ro, rd, t0, prim, n, m, k, num_steps, \
-                                       normal_eps, t_out, n_out, s)         \
-               : launch_lanes<L, false>(ro, rd, t0, prim, n, m, k,          \
-                                        num_steps, normal_eps, t_out, n_out, \
-                                        s)
+    return launch_lanes<L>(ro, rd, t0, prim, n, m, k, num_steps, normal_eps, \
+                           t_out, n_out, s)
   switch (pick_lanes(n, m)) {
     MS_CASE(1);
     MS_CASE(2);

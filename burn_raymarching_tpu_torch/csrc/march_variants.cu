@@ -93,8 +93,8 @@ march_variants_kernel(const float* __restrict__ ro,
   tab.c_sq = c_sq;
   tab.m = m;
   tab.k = k;
-  dense_march<L, false, CLAMP, EXP2, COORD>(tab, m, ro, rd, t0, n, k,
-                                            num_steps, eps, t_out, n_out);
+  dense_march<L, CLAMP, EXP2, COORD>(tab, m, ro, rd, t0, n, k, num_steps,
+                                     eps, t_out, n_out);
 }
 
 template <bool CLAMP, bool EXP2, bool COORD>

@@ -24,8 +24,8 @@ Three steps are timed:
   * plain  — the plain PyTorch march and shade tail (ops/march.py,
              render/diff.py);
   * kernel — K1 (csrc/march_shade.cu) marches 40 steps cold, the plain
-             tail shades (bench.py's ``pallas``). K1's early exit is off,
-             as it is in the JAX package's default;
+             tail shades (bench.py's ``pallas``, whose early exit is off by
+             default);
   * warm   — K1 marches ``warm_steps`` (16) from ``warm_backoff`` × the
              per-pixel cached t and writes t back into the cache; K2
              (csrc/shade.cu) shades, forward and backward. The cache is

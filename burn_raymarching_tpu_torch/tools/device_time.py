@@ -6,11 +6,11 @@ the launches the host made per call (kernel launches, copies, memsets and
 CUDA-graph launches, each one runtime or driver call). Kernels that a
 CUDA-graph replay runs appear as device events like any other.
 
-``chip_smoke.py`` (its config-1, config-4, refine and config-5 phases),
-``tools/bench_large.py`` and ``tools/bench.py`` report these numbers, and
-``PERF.md`` compares them across PRs. Change what this module counts only together with a new
-row of readings in ``PERF.md``: an edit here changes every figure read
-through it.
+``tools/bench.py``, ``tools/bench_large.py`` and
+``tools/dryrun_multichip.py`` report these numbers (``chained_ms`` times
+the march tools' chained calls), and ``PERF.md`` compares them across PRs.
+Change what this module counts only together with a new row of readings in
+``PERF.md``: an edit here changes every figure read through it.
 """
 
 from __future__ import annotations

@@ -56,7 +56,7 @@ def train_shade(ro, rd, centers, colors, radii, light_dir, ambient,
     """The training forward (render/diff.render_diff at k = 32) over
     ``chunk`` rays at a time → [N, 3]. ``march_normal_fn`` is the K1 wrapper
     (its plain version for CPU tensors); None marches with the plain march
-    and normals of render_diff, the reference chip_smoke.py holds K1's
+    and normals of render_diff, the reference the viewer tests hold K1's
     frames against."""
     from burn_raymarching_tpu_torch.render.diff import render_diff
 

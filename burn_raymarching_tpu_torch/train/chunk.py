@@ -10,7 +10,7 @@ runs steps ``first`` .. ``first + n - 1`` of a stage in one of two ways:
   graphs do not exist there), the sharded trainer over a gloo mesh (gloo
   stages CUDA tensors through host memory, which a graph cannot record;
   parallel/train_step.replays_graphs), and the reference that the tests
-  and ``chip_smoke.py`` hold the graph against;
+  hold the graph against;
 * by replaying a CUDA graph that holds ``unroll`` whole steps (sampling,
   the march, the shade tail, the loss, backward and Adam; in the sharded
   step over NCCL also its collectives: the model axis's all-to-all,

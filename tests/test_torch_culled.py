@@ -51,6 +51,7 @@ from burn_raymarching_tpu_torch.ops.cuda import culled_march_kernel as k3
 from burn_raymarching_tpu_torch.ops.sdf import soft_min
 from burn_raymarching_tpu_torch.render import culled as tr
 from burn_raymarching_tpu_torch.render.preview import CullRender, render_tiled
+from burn_raymarching_tpu_torch.tools import kernel_cases as kc
 
 TILE = 64
 BUDGET = 8
@@ -317,14 +318,6 @@ def _cuda_case(dev, b, t_dim, k_dim, seed):
     return ro, rd, cs, rs, qs
 
 
-def _march_gaps(t_a, n_a, t_b, n_b, hit):
-    """(max |dt| on hit rays, max |dt|/(1+t) on all, max |dn| on hit)."""
-    dt = (t_a - t_b.to(t_a.dtype)).abs()[..., 0]
-    rel = dt / (1.0 + t_b.to(t_a.dtype)[..., 0].abs())
-    return (dt[hit].max().item(), rel.max().item(),
-            (n_a - n_b.to(n_a.dtype))[hit].abs().max().item())
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("k_dim", [5, 300, 2048, 5000, 8192])
 def test_cuda_kernel_matches_plain(cuda_device, k_dim):
@@ -334,23 +327,126 @@ def test_cuda_kernel_matches_plain(cuda_device, k_dim):
     ragged (a block marches 16 rays). At k = 128 around
     spheres of radius 0.02-0.07 the march's float32 noise reaches ~1e-2 in
     the normals, so each gap to the plain version is held to 5x the plain
-    version's own gap to the same march in float64, plus 1e-5."""
+    version's own gap to the same march in float64, plus 1e-5
+    (kernel_cases.march_noise_tols), cold and then warm."""
     args = _cuda_case(cuda_device, 4, 250, k_dim, k_dim)
-    args64 = [a.double() for a in args]
     t_init = None
     for steps in (40, 16):
-        kw = dict(num_steps=steps, t_init=t_init)
-        t_p, n_p = tr.culled_march_normals_xla(*args, 128.0, **kw)
-        t_64, n_64 = tr.culled_march_normals_xla(
-            *args64, 128.0, num_steps=steps,
-            t_init=None if t_init is None else t_init.double())
-        before = k3.culled_march_normals.launches
-        t_k, n_k = k3.culled_march_normals(*args, 128.0, **kw)
-        torch.cuda.synchronize()
-        assert k3.culled_march_normals.launches == before + 1
-        hit = t_64[..., 0] < 10.0
-        assert int(hit.sum()) > 50
-        noise = _march_gaps(t_p, n_p, t_64, n_64, hit)
-        for gap, tol in zip(_march_gaps(t_k, n_k, t_p, n_p, hit), noise):
-            assert gap <= 5.0 * tol + 1e-5, (steps, gap, noise)
+        t_p = _k3_held(args, 128.0, steps, t_init, min_hits=51)
         t_init = t_p * 0.8
+
+
+# The paths' own shapes (kernel_cases' inputs): config 4's 32 tiles of 512
+# rays against top-2,048 tables of the 5,120-sphere knot cloud; the chunked
+# path (8 of them against 8,192 live columns); the refine acceptance loss's
+# 512 tiles (cold; held on 16 of them); config 5's 32 tiles of its 256² rig
+# against top-4,096 tables of 51,200 spheres; the dry run's parts (d) and
+# (e); the bench flagship's step (hierarchical top-256 of 51,200 spheres,
+# 16 warm steps from the Trainer's prefilled t cache).
+K3_PATHS = ("config4", "chunked", "acceptance", "config5", "dryrun_kernel",
+            "dryrun_union", "flagship")
+
+
+def _flagship_case(dev):
+    """The bench flagship's step batch (tools/bench.flagship_config):
+    sampled and sorted as the step samples it, in tiles against its
+    hierarchical tables, at the last stage's smooth_k → (args, k, the warm
+    start: the prefilled t cache x warm_backoff, warm steps)."""
+    from burn_raymarching_tpu_torch.data.dataset import gather_batch
+    from burn_raymarching_tpu_torch.models.scene import activate
+    from burn_raymarching_tpu_torch.tools import bench
+    from burn_raymarching_tpu_torch.tools import bench_large as bl
+    from burn_raymarching_tpu_torch.train.loop import Trainer
+    from burn_raymarching_tpu_torch.train.step_body import (
+        culled_tables,
+        sample_step_indices,
+        schedule_for_step,
+    )
+
+    cfg = bench.flagship_config()
+    ds = bl.make_dataset(10 * 256 * 256, 256, dev)
+    padded, mask = bl.make_params(kc.LARGE_INIT_N, dev)
+    trainer = Trainer(cfg, ds, log=lambda s: None)
+    trainer.t_cache = trainer._init_t_cache()
+    trainer.prefill_t_cache(padded, mask, cfg.max_smooth_k)
+    clusters = trainer._build_cluster_table(padded, mask)
+    _, k, ratio, _ = schedule_for_step(cfg, cfg.stages - 1, 1)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    fg, n_fg = trainer._sample_fg
+    idx = torch.sort(sample_step_indices(
+        cfg, gen, ds.packed.shape[0], fg, n_fg, cfg.batch_size,
+        ratio)).values
+    ro, rd, _ = gather_batch(ds.packed, idx)
+    b, tile = cfg.batch_size // cfg.cull_tile, cfg.cull_tile
+    with torch.no_grad():
+        c, _, r, _, _ = activate(padded)
+        _, _, cs, rs, qs = culled_tables(cfg, ro, rd, c, r, k, mask,
+                                         clusters)
+    args = (ro.reshape(b, tile, 3), rd.reshape(b, tile, 3), cs, rs, qs)
+    t0 = (trainer.t_cache[idx] * cfg.warm_backoff).reshape(b, tile, 1)
+    return args, k, t0.contiguous(), cfg.warm_steps
+
+
+def _k3_held(args, k, steps, t_init=None, pick=None, min_hits=1):
+    """K3 on ``args`` against its plain version (on the tiles ``pick``
+    only, when given) within kernel_cases.march_noise_tols, with at least
+    ``min_hits`` rays that hit → the plain t."""
+    kw = dict(num_steps=steps, t_init=t_init)
+    before = k3.culled_march_normals.launches
+    t_k, n_k = k3.culled_march_normals(*args, k, **kw)
+    assert k3.culled_march_normals.launches == before + 1
+    if pick is not None:
+        t_k, n_k = t_k[pick], n_k[pick]
+        args = [a[pick].contiguous() for a in args]
+        t_init = None if t_init is None else t_init[pick].contiguous()
+    t_p, n_p = tr.culled_march_normals_xla(*args, k, num_steps=steps,
+                                           t_init=t_init)
+    t_64, n_64 = tr.culled_march_normals_xla(
+        *[a.double() for a in args], k, num_steps=steps,
+        t_init=None if t_init is None else t_init.double())
+    torch.cuda.synchronize()
+    errs = kc.march_errors(t_k, n_k, t_p, n_p)
+    assert errs["hit_rays"] >= min_hits, errs
+    tols = kc.march_noise_tols(t_p, n_p, t_64, n_64)
+    assert not kc.march_excess(errs, tols), (steps, errs, tols)
+    return t_p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", K3_PATHS)
+def test_cuda_kernel_at_the_paths_shapes(cuda_device, path):
+    """K3 at each path's own tiles and tables (K3_PATHS), cold (40 steps,
+    the dry run's march_steps) and, where the path warm-starts, warm (16
+    steps, the dry run's warm_steps, from the warm start of the path: 0.8
+    of the plain cold t, or warm_backoff of it, or the flagship's
+    prefilled t cache), each against its plain version within 5x the plain
+    version's own float32 gap to the same march in float64, plus 1e-5."""
+    dev = cuda_device
+    if path.startswith("dryrun"):
+        (*args, k, cfg) = kc.dryrun_k3_inputs(dev)[path.split("_")[1]]
+        t_cold = _k3_held(args, k, cfg.render.march_steps)
+        _k3_held(args, k, cfg.warm_steps,
+                 (t_cold * cfg.warm_backoff).contiguous())
+        return
+    if path == "flagship":
+        args, k, t0, steps = _flagship_case(dev)
+        _k3_held(args, k, steps, t0)
+        return
+    if path == "config5":
+        _, mask, c, r = kc.knot_cloud(dev, 51200, gt_n=2000)
+        args, _ = kc.c4_tiles(dev, c, r, mask, size=256, views=100,
+                              budget=4096)
+    else:
+        _, mask, c, r = kc.knot_cloud(dev, kc.C4_INIT_N)
+        if path == "acceptance":
+            args, _ = kc.c4_tiles(dev, c, r, mask, tiles=512, draw=16)
+            pick = torch.arange(0, 512, 32, device=dev)
+            _k3_held(args, kc.C4_K, 40, pick=pick)
+            return
+        args, _ = kc.c4_tiles(dev, c, r, mask)
+    if path == "chunked":
+        _k3_held(kc.chunked_tiles(dev, args[0], args[1]), kc.C4_K, 16)
+        return
+    t_cold = _k3_held(args, kc.C4_K, 40)
+    _k3_held(args, kc.C4_K, 16, (t_cold * 0.8).contiguous())

@@ -42,6 +42,7 @@ from burn_raymarching_tpu_torch.render.culled import (
     culled_march_normals_xla,
     render_diff_culled,
 )
+from burn_raymarching_tpu_torch.tools import kernel_cases as kc
 from burn_raymarching_tpu_torch.train.step_body import (
     uses_fused_culled_shade,
 )
@@ -399,24 +400,22 @@ def test_a_culled_cpu_step_with_the_k3_wrapper_counts_the_fused_tail(
 # --- on the card ---------------------------------------------------------- #
 
 def _card_case(dev, shape: str):
-    """chip_smoke.py's K6 inputs: config 4's tiles and tables (32 Morton
+    """kernel_cases' K6 inputs: config 4's tiles and tables (32 Morton
     tiles of 512 rays of the 30-view 512² knot rig, K = 2,048 from a real
     selection over 5,120 knot-seeded spheres), or ``full_tables``: the
     first 4 of them each against 2,048 valid slots; t and normal from K3.
     ``small``: the CPU tests' tiles (a tile without a valid slot, 24 rays a
     tile: a ray block half filled)."""
-    import chip_smoke
-
     if shape == "small":
         ro3, rd3, cs, cols, rs, valid, light, amb, cot = _tiles(torch.float32)
-        t, normal = _march(ro3, rd3, cs, rs, valid, chip_smoke.C4_K)
+        t, normal = _march(ro3, rd3, cs, rs, valid, kc.C4_K)
         return (tuple(x.to(dev) for x in (ro3, rd3, t, normal, cs, cols, rs,
                                           valid, light, amb)), cot.to(dev))
-    _, mask, c, r = chip_smoke.knot_cloud(torch, dev, chip_smoke.C4_INIT_N)
-    args, _ = chip_smoke.c4_tiles(torch, dev, c, r, mask)
+    _, mask, c, r = kc.knot_cloud(dev, kc.C4_INIT_N)
+    args, _ = kc.c4_tiles(dev, c, r, mask)
     if shape == "full_tables":
-        args = chip_smoke.full_tables(torch, args, c, r, mask)
-    return chip_smoke.k6_inputs(torch, dev, args)
+        args = kc.full_tables(args, c, r, mask)
+    return kc.k6_inputs(dev, args)
 
 
 @pytest.mark.cuda
@@ -424,18 +423,16 @@ def _card_case(dev, shape: str):
 def test_cuda_kernels_match_the_plain_tail(cuda_device, shape):
     """Value and all five gradients within 5x the plain version's float32
     gap to float64 + 1e-5; a second call bitwise equal."""
-    from chip_smoke import K6_GRADS, k6_run
-
     inp, cot = _card_case(cuda_device, shape)
-    got = k6_run(torch, k6.culled_shade, inp, cot)
-    plain = k6_run(torch, k6.culled_shade_plain, inp, cot)
-    plain64 = k6_run(torch, k6.culled_shade_plain, inp, cot, torch.float64)
+    got = kc.k6_run(k6.culled_shade, inp, cot)
+    plain = kc.k6_run(k6.culled_shade_plain, inp, cot)
+    plain64 = kc.k6_run(k6.culled_shade_plain, inp, cot, torch.float64)
     before = k6.launch_ctail_bwd.launches
-    again = k6_run(torch, k6.culled_shade, inp, cot)
+    again = kc.k6_run(k6.culled_shade, inp, cot)
     torch.cuda.synchronize()
     assert k6.launch_ctail_bwd.launches == before + 1
-    for name, g, p, p64, a in zip(("out",) + K6_GRADS, got, plain, plain64,
-                                  again):
+    for name, g, p, p64, a in zip(("out",) + kc.K6_GRADS, got, plain,
+                                  plain64, again):
         tol = 5.0 * float(torch.abs(p.double() - p64).max()) + 1e-5
         err = float(torch.abs(g - p).max())
         assert err <= tol, f"{name}: {err} > {tol}"
@@ -447,11 +444,8 @@ def test_cuda_empty_tile_and_invalid_slots_get_exact_zeros(cuda_device):
     """On the CPU tests' tiles (one without a valid slot, 24 rays a tile, so
     a ray block is half filled): the empty tile shades exactly 0, it and
     every invalid slot get exactly 0 gradient, and everything is finite."""
-    from chip_smoke import k6_run
-
     inp, cot = _card_case(cuda_device, "small")
-    out, d_c, d_col, d_r, d_l, d_amb = k6_run(torch, k6.culled_shade, inp,
-                                              cot)
+    out, d_c, d_col, d_r, d_l, d_amb = kc.k6_run(k6.culled_shade, inp, cot)
     valid = inp[7]
     np.testing.assert_array_equal(nn(out[:T]), 0.0)
     for grad in (d_c, d_col, d_r):

@@ -6,7 +6,9 @@ case per function); (b) the eight library entry points that build tensors
 from host data, called with no device on a machine without a card, raise
 the RuntimeError of ``utils.device.resolve_device`` that names
 ``device="cpu"``, not torch's "not compiled with CUDA" and not a silent
-CPU run; (c) with ``device="cpu"`` each of them lands on the CPU.
+CPU run; (c) with ``device="cpu"`` each of them lands on the CPU; (d) on
+the card, with no device named, the library flow trains there through K1
+and K2 and each entry point returns card tensors.
 """
 
 import ast
@@ -155,3 +157,39 @@ def test_no_card_without_a_device_raises_naming_the_cpu(name, cameras_json,
 def test_device_cpu_lands_on_the_cpu(name, cameras_json):
     out = _call(name, cameras_json, device="cpu")
     assert _result_device(out).type == "cpu"
+
+
+@pytest.mark.cuda
+def test_cuda_with_no_device_named_the_library_runs_on_the_card(tmp_path):
+    """``Trainer(cfg, build_dataset(cfg)).run()`` with TrainConfig's
+    defaults (config 1's width, kernels on) on the dango set at 256², no
+    device named anywhere: the dataset and the trained scene are on the
+    card, 2 x 20 steps across one density boundary launch K1, its table
+    pack and K2's pack, forward and backward, the loss stays finite; and
+    every other entry point called without a device returns card
+    tensors."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from burn_raymarching_tpu_torch.ops.cuda import march_shade_kernel as k1
+    from burn_raymarching_tpu_torch.ops.cuda import shade_kernel as k2
+    from burn_raymarching_tpu_torch.train.loop import Trainer
+
+    data = str(tmp_path / "data")
+    generate.main(["--out", data, "--size", "256"])
+    cameras = os.path.join(data, "cameras.json")
+    out = str(tmp_path / "run")
+    cfg = TrainConfig(stages=2, steps_per_stage=20, cameras_json=cameras,
+                      steps_dir=os.path.join(out, "steps"),
+                      scene_json=os.path.join(out, "scene.json"),
+                      checkpoint_dir="")
+    fns = (k1.march_shade, k1.pack_march_table, k2.pack_shade_table,
+           k2.launch_shade_fwd, k2.launch_shade_bwd)
+    before = [f.launches for f in fns]
+    ds = build_dataset(cfg)
+    trainer = Trainer(cfg, ds, log=lambda s: None)
+    padded, _ = trainer.run()
+    assert all(f.launches > b for f, b in zip(fns, before))
+    assert ds.device.type == padded.centers.device.type == "cuda"
+    assert np.isfinite(trainer.loss_history[-1])
+    for name in ENTRY_POINTS[1:]:
+        assert _result_device(_call(name, cameras)).type == "cuda", name

@@ -9,10 +9,13 @@ must then make the same calls in the same order (attempts, boundary
 re-rolls, the (seed, stage, attempt, redo) salt of every boundary rng),
 count the same retries and re-rolls, and keep the same candidate. Exact.
 A real tiny guarded run checks the metrics fields and the view subsample.
+On the card, train_cli runs config 1 guarded, with a supersampled first
+stage and a polish round, through K1 and K2.
 """
 
 import dataclasses
 import json
+import math
 import os
 
 import jax.numpy as jnp
@@ -227,3 +230,40 @@ def test_unguarded_run_is_unchanged_by_the_guard_code(tiny_dango, tmp_path):
     assert trainer._guard_eval is None
     assert trainer.guard_retry_count == trainer.guard_boundary_redo_count == 0
     assert not [r for r in trainer.metrics.read() if "guard_attempt" in r]
+
+
+@pytest.mark.cuda
+def test_cuda_guarded_supersampled_config1_with_a_polish_round(tmp_path):
+    """train_cli on the card at config 1's width (the dango set at 256²,
+    batch 16,384, kernels on) for 2 x 100 steps with --stage-guard,
+    --ss-stages 4,1 and --polish 1: every stage guarded with finite PSNRs
+    and losses, one polish round that returns no lower a PSNR than its
+    baseline, and K1, its table pack and K2's pack, forward and backward
+    launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from burn_raymarching_tpu_torch.ops.cuda import march_shade_kernel as k1
+    from burn_raymarching_tpu_torch.ops.cuda import shade_kernel as k2
+    from burn_raymarching_tpu_torch.tools import train_cli
+
+    data = str(tmp_path / "data")
+    generate.main(["--out", data, "--size", "256"])
+    fns = (k1.march_shade, k1.pack_march_table, k2.pack_shade_table,
+           k2.launch_shade_fwd, k2.launch_shade_bwd)
+    before = [f.launches for f in fns]
+    out = str(tmp_path / "guard")
+    pixel_angle = 2.0 * math.tan(math.radians(50.0 / 2)) / 256
+    trainer, padded, mask = train_cli.main([
+        "--cameras", os.path.join(data, "cameras.json"), "--stages", "2",
+        "--steps", "100", "--scene-out", os.path.join(out, "scene.json"),
+        "--steps-dir", os.path.join(out, "steps"), "--checkpoint-dir", "",
+        "--stage-guard", "--ss-stages", "4,1", "--pixel-angle",
+        repr(pixel_angle), "--polish", "1", "--device", "cuda"])
+    assert all(f.launches > b for f, b in zip(fns, before))
+    guard = [e for e in trainer.events if e["kind"] == "guard"]
+    (polish,) = [e for e in trainer.events if e["kind"] == "polish"]
+    psnr = trainer.views_psnr(padded, mask)
+    assert len(guard) >= 2
+    assert all(math.isfinite(e["psnr_post"]) for e in guard)
+    assert all(math.isfinite(x) for x in trainer.loss_history)
+    assert math.isfinite(psnr) and psnr >= polish["baseline"]

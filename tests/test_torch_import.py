@@ -1,7 +1,7 @@
-"""The port and chip_smoke.py import and render with JAX blocked, and load no
-module of the JAX package: config and utils are the port's own copies.
-Pillow and imageio are blocked too: only the capture tools and the viewer's
---video use them, inside the functions that need them."""
+"""The port imports and renders with JAX blocked, and loads no module of
+the JAX package: config and utils are the port's own copies. Pillow and
+imageio are blocked too: only the capture tools and the viewer's --video
+use them, inside the functions that need them."""
 
 import os
 import re
@@ -31,8 +31,6 @@ ro, rd = create_camera_rays(4, 4, [0.0, 0.5, -2.5], [0, 0, 0], 50.0,
 padded, mask = pad_params(init_scene_params(7, device="cpu"), 8)
 out = scene_forward(padded, ro, rd, 18.5, mask=mask)
 assert out.shape == (16, 3) and bool(torch.isfinite(out).all())
-import chip_smoke                  # module level only; main() needs a card
-names.append("chip_smoke")
 jax_pkg = {m for m in sys.modules if m == "burn_raymarching_tpu"
            or m.startswith("burn_raymarching_tpu.")}
 assert not jax_pkg, sorted(jax_pkg)
@@ -56,9 +54,9 @@ def test_port_imports_without_jax():
 
 
 def test_port_sources_name_no_jax_import():
-    """No file of the port, nor chip_smoke.py, has an import line for jax or
-    for the JAX package."""
-    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    """No file of the port has an import line for jax or for the JAX
+    package."""
+    paths = []
     for folder, _, files in os.walk(os.path.join(ROOT,
                                                  "burn_raymarching_tpu_torch")):
         if os.path.basename(folder) in ("build", "__pycache__"):

@@ -33,6 +33,7 @@ from burn_raymarching_tpu.ops.pallas.march_shade_kernel import (
 )
 from burn_raymarching_tpu_torch.ops.cuda import march_shade_kernel as k1
 from burn_raymarching_tpu_torch.ops.sdf import soft_min
+from burn_raymarching_tpu_torch.tools import kernel_cases as kc
 
 
 @pytest.fixture(scope="module")
@@ -201,9 +202,9 @@ def test_cuda_kernel_table_widths(cuda_device, m, live, side):
     every lanes-per-ray instantiation (1, 8, 4, 16, 2, 32, 8, 32 lanes) and,
     at M = 1,500, the chunked path; cold, against the plain version; the
     pack kernel's table bitwise against the plain table. Each gap is held
-    to chip_smoke.py's K1 tolerance or, where the march itself is noisier
-    (among 16,384+ rays some graze a sphere), to 5x the plain version's
-    own gap to the same march in float64, plus 1e-5."""
+    to K1's fixed tolerance (kernel_cases.MARCH_TOLS) or, where the march
+    itself is noisier (among 16,384+ rays some graze a sphere), to 5x the
+    plain version's own gap to the same march in float64, plus 1e-5."""
     dev = cuda_device
     c, r, mask, table = _random_table(5, m, live)
     c[:live] *= 0.6
@@ -254,7 +255,7 @@ def test_cuda_kernel_chunked_table(cuda_device):
     t_p, n_p = k1.march_shade_plain(ro, rd, c, r, 32.0, mask=mask)
     hit = nn(t_p[:, 0] < 10.0)
     assert hit.sum() > 20
-    # t: chip_smoke.py's K1 tolerances (ill-conditioned rays). Normals: near
+    # t: K1's fixed tolerances (ill-conditioned rays). Normals: near
     # the surface of r ~ 0.03 spheres the expanded form |p|^2+|c|^2-2p.c
     # cancels, so the SDF carries ~6e-7 rounding that the 1/(2 eps) central
     # difference lifts to ~1e-3..5e-3 (5.2e-3 seen on an H100).
@@ -278,99 +279,35 @@ def test_cuda_kernel_chunked_table(cuda_device):
     assert torch.equal(t_a, t_b) and torch.equal(n_a, n_b)
 
 
-# --- early exit ---------------------------------------------------------- #
-
-def _early_exit_check(t_a, n_a, t_b, n_b, num_steps=40, normal_atol=1e-3):
-    """Two early-exit marches whose voting groups differ: rays that hit
-    (t < 10) have converged and agree within early_exit_tolerance (at most
-    num_steps further steps of under CONV_TOL each) plus the 1e-5 of the
-    fixed-count comparison; a ray is past MISS_T in one exactly when it is
-    in the other; normals on hit rays to ``normal_atol`` (the reattach step
-    absorbs the gap in t; what is left is the float32 noise of the 1/(2 eps)
-    central difference at a point that moved by ~1e-5)."""
-    t_a, n_a, t_b, n_b = (nn(x) for x in (t_a, n_a, t_b, n_b))
-    hit = t_b[:, 0] < 10.0
-    assert hit.sum() > 20
-    tol = k1.early_exit_tolerance(num_steps) + 1e-5
-    assert np.abs(t_a - t_b)[hit].max() <= tol
-    np.testing.assert_array_equal(t_a >= k1.MISS_T, t_b >= k1.MISS_T)
-    np.testing.assert_allclose(n_a[hit], n_b[hit], atol=normal_atol)
-
-
-@pytest.mark.parametrize("k", [5.0, 18.5, 32.0])
-def test_early_exit_plain_matches_jax_kernel(rays, k):
-    """The plain early exit (every ray frozen on its own) against the JAX
-    kernel's (a 64-ray tile votes), in interpret mode."""
-    ro, rd = rays
-    want = _jax(ro, rd, DANGO_CENTERS, DANGO_RADII, k, early_exit=True)
-    got = k1.march_shade(tt(ro), tt(rd), tt(DANGO_CENTERS), tt(DANGO_RADII),
-                         k, early_exit=True)
-    _early_exit_check(*got, *want)
-
-
-def test_early_exit_stays_within_tolerance_of_fixed_count(rays):
-    """Early exit against the fixed 40 steps, both plain: hit rays within
-    the stated tolerance; and it did end early (a frozen ray keeps the t of
-    its last live step, which the fixed march moves on from)."""
-    args = (tt(rays[0]), tt(rays[1]), tt(DANGO_CENTERS), tt(DANGO_RADII),
-            18.5)
-    fixed = k1.march_shade_plain(*args)
-    early = k1.march_shade_plain(*args, early_exit=True)
-    _early_exit_check(*early, *fixed)
-    assert not torch.equal(early[0], fixed[0])
-    assert float(early[0].max()) < float(fixed[0].max())
-
-
-def test_early_exit_counts_the_steps_each_ray_took(rays):
-    """``return_steps``: the same t, and per ray the steps it took while
-    live: at least 1, at most num_steps, fewer than that on the rays that
-    froze, all of them on a ray that never converged in a short march."""
-    args = (tt(rays[0]), tt(rays[1]), tt(DANGO_CENTERS), tt(DANGO_RADII),
-            18.5)
-    t = k1.march_early_exit(*args)
-    t_s, steps = k1.march_early_exit(*args, return_steps=True)
-    assert torch.equal(t, t_s) and steps.shape == t.shape
-    assert float(steps.min()) >= 1 and float(steps.max()) <= 40
-    assert float(steps.mean()) < 40
-    _, short = k1.march_early_exit(*args, num_steps=3, return_steps=True)
-    assert float(short.max()) == 3 and float(short.min()) >= 1
-
-
-def test_early_exit_warm_start_and_mask(rays):
-    ro, rd = rays
-    c = np.concatenate([DANGO_CENTERS, np.full((5, 3), 0.1, np.float32)])
-    r = np.concatenate([DANGO_RADII, np.full((5, 1), 0.5, np.float32)])
-    mask = np.arange(8) < 3
-    t_cold, _ = _jax(ro, rd, c, r, 18.5, mask=jnp.asarray(mask))
-    t0 = (0.8 * t_cold).astype(np.float32)
-    want = _jax(ro, rd, c, r, 18.5, mask=jnp.asarray(mask), num_steps=16,
-                t_init=jnp.asarray(t0), early_exit=True)
-    got = k1.march_shade(tt(ro), tt(rd), tt(c), tt(r), 18.5, mask=tt(mask),
-                         num_steps=16, t_init=tt(t0), early_exit=True)
-    _early_exit_check(*got, *want, num_steps=16)
-
-
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,live", [(8, 7), (32, 25), (128, 100),
-                                    (1500, 1200)])
-def test_cuda_kernel_early_exit(cuda_device, m, live):
-    """The kernel's early exit (a warp votes; a block where the table is
-    chunked, m = 1,500) against its own fixed-count launch within the
-    stated tolerance (normals to 5e-3, the bound the kernel is held to
-    against its plain version on the card: 2.0e-3 seen at 16,384 rays), and
-    the fixed-count launch unchanged by the flag's existence (two launches,
-    bitwise equal)."""
+@pytest.mark.parametrize("live,slots",
+                         [*kc.K1_NARROW, (kc.M_LIVE, kc.M_SLOTS)])
+def test_cuda_kernel_at_the_main_path_inputs(cuda_device, live, slots):
+    """K1 on config 1's main-path inputs (kernel_cases.main_path_inputs:
+    16,384 rays of the dango rig, ``live`` random primitives in ``slots``
+    slots) against its plain version: at 128 slots cold and warm (16 steps
+    from 0.8 of the plain cold t) within the fixed MARCH_TOLS; at the
+    narrower tables config 1 trains at, cold, within the larger of those and
+    5x the plain version's own gap to float64 plus 1e-5."""
     dev = cuda_device
-    rng = np.random.default_rng(m)
-    ro, rd = j_rays(128, 128, [0.0, 0.3, -1.5], [0.0, 0.0, 0.0], 50.0)
-    ro, rd = tt(ro).to(dev), tt(rd).to(dev)
-    c = torch.zeros((m, 3), device=dev)
-    r = torch.full((m, 1), 0.05, device=dev)
-    c[:live] = tt(rng.normal(0, 0.3, (live, 3)).astype(np.float32)).to(dev)
-    mask = torch.arange(m, device=dev) < live
-    fixed = k1.march_shade(ro, rd, c, r, 18.5, mask=mask)
-    again = k1.march_shade(ro, rd, c, r, 18.5, mask=mask, early_exit=False)
-    early = k1.march_shade(ro, rd, c, r, 18.5, mask=mask, early_exit=True)
-    torch.cuda.synchronize()
-    assert torch.equal(fixed[0], again[0]) and torch.equal(fixed[1], again[1])
-    _early_exit_check(*early, *fixed, normal_atol=5e-3)
+    ro, rd, padded, mask, activate, _ = kc.main_path_inputs(dev, live,
+                                                             slots)
+    with torch.no_grad():
+        c, _, r, _, _ = activate(padded)
+    args = (ro, rd, c, r, kc.K1_K)
+    t_p, n_p = k1.march_shade_plain(*args, mask=mask)
+    tols = dict(kc.MARCH_TOLS)
+    runs = [dict(mask=mask)]
+    if slots == kc.M_SLOTS:
+        runs.append(dict(mask=mask, num_steps=16,
+                         t_init=(t_p * 0.8).contiguous()))
+    else:
+        t_64, n_64 = k1.march_shade_plain(ro.double(), rd.double(),
+                                          c.double(), r.double(), kc.K1_K,
+                                          mask=mask)
+        noise = kc.march_noise_tols(t_p, n_p, t_64, n_64)
+        tols = {key: max(tol, noise[key]) for key, tol in tols.items()}
+    for kw in runs:
+        errs = kc.march_errors(*k1.march_shade(*args, **kw),
+                               *k1.march_shade_plain(*args, **kw))
+        assert not kc.march_excess(errs, tols), (kw.keys(), errs, tols)

@@ -21,7 +21,7 @@ The CUDA kernel (K1's march core with the three switches) is held on the
 card by the cuda-marked tests (``pytest -m cuda
 tests/test_torch_march_variants.py``): against the plain version within 5x
 the plain float32 version's own gap to the same march in float64, plus
-1e-5 (chip_smoke.march_noise_tols, the rule for K1, K3 and K5: the SFU's
+1e-5 (kernel_cases.march_noise_tols, the rule for K1, K3 and K5: the SFU's
 approximate sqrt and exp move t on hit rays by ~1e-3 at 40 steps, as they
 move K1), bitwise equal across tile sizes, ``base`` bitwise equal to K1 on
 the same table, and past one staged chunk of slots. The CPU test of the
@@ -47,6 +47,7 @@ from burn_raymarching_tpu_torch.data.camera import create_camera_rays
 from burn_raymarching_tpu_torch.ops.cuda import march_shade_kernel as k1
 from burn_raymarching_tpu_torch.ops.cuda import march_variants_kernel as k5
 from burn_raymarching_tpu_torch.tools import exp_march_variants, roofline
+from burn_raymarching_tpu_torch.tools import kernel_cases as kc
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_SIDE_W, N_SIDE_H, M, LIVE, STEPS, TILE, K = 16, 8, 16, 12, 8, 64, 18.5
@@ -263,18 +264,7 @@ def test_roofline_main_cpu(capsys):
     assert "exp+sqrt stream, 64x128: 40 passes not measured" in lines[1]
 
 
-@pytest.fixture(scope="module")
-def chip_smoke():
-    """chip_smoke.py as a module (its main is not called): the tolerance
-    rule of the march kernels, march_noise_tols."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def _hold_to_float64_noise(cs, args, steps, flags, t_k, n_k):
+def _hold_to_float64_noise(args, steps, flags, t_k, n_k):
     """K5's t and normals against the plain version on the same inputs,
     each within 5x the plain float32 version's own gap to the same march in
     float64, plus 1e-5 (hit rays, t < 10: t and normals; all rays: t
@@ -284,15 +274,14 @@ def _hold_to_float64_noise(cs, args, steps, flags, t_k, n_k):
                                         1, *flags)
     torch.cuda.synchronize()
     assert int((t_64[:, 0] < 10.0).sum()) > 20
-    errs = cs.march_errors(torch, t_k, n_k, t_p, n_p)
-    tols = cs.march_noise_tols(torch, t_p, n_p, t_64, n_64)
-    for key, tol in tols.items():
-        assert errs[key] <= tol, (key, errs[key], tols)
+    errs = kc.march_errors(t_k, n_k, t_p, n_p)
+    tols = kc.march_noise_tols(t_p, n_p, t_64, n_64)
+    assert not kc.march_excess(errs, tols), (errs, tols)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("flags", FLAGS, ids=IDS)
-def test_cuda_kernel_matches_plain(inputs, cuda_device, chip_smoke, flags):
+def test_cuda_kernel_matches_plain(inputs, cuda_device, flags):
     """K5 against its plain version on the card (one launch, counted) under
     the float64-noise rule, and bitwise equal at other tile sizes (a ray's
     arithmetic does not depend on its block)."""
@@ -302,7 +291,7 @@ def test_cuda_kernel_matches_plain(inputs, cuda_device, chip_smoke, flags):
     before = k5.variant_march.launches
     t_k, n_k = k5.variant_march(*args, STEPS, TILE, clamp, exp2, coord)
     assert k5.variant_march.launches == before + 1
-    _hold_to_float64_noise(chip_smoke, args, STEPS, flags, t_k, n_k)
+    _hold_to_float64_noise(args, STEPS, flags, t_k, n_k)
     for tile in (1, 32, 128):
         t_b, n_b = k5.variant_march(*args, STEPS, tile, clamp, exp2, coord)
         assert torch.equal(t_b, t_k) and torch.equal(n_b, n_k)
@@ -341,7 +330,7 @@ def test_cuda_base_is_k1(inputs, cuda_device, slots):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("flags", FLAGS, ids=IDS)
-def test_cuda_chunked_table(inputs, cuda_device, chip_smoke, flags):
+def test_cuda_chunked_table(inputs, cuda_device, flags):
     """3,000 slots (2,870 live, the last live one at 2,899): past the
     kernel's 1,024-column shared-memory chunk, so the table is staged chunk
     by chunk in every evaluation; against the plain version under the
@@ -362,4 +351,4 @@ def test_cuda_chunked_table(inputs, cuda_device, chip_smoke, flags):
         np.ascontiguousarray(np.concatenate([c.T, r[None]])), c_sq,
         inputs["k"])]
     t_k, n_k = k5.variant_march(*args, STEPS, TILE, clamp, exp2, coord)
-    _hold_to_float64_noise(chip_smoke, args, STEPS, flags, t_k, n_k)
+    _hold_to_float64_noise(args, STEPS, flags, t_k, n_k)

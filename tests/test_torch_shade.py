@@ -40,7 +40,9 @@ from burn_raymarching_tpu_torch.models.scene import (
     activate,
     params_from_numpy,
 )
+from burn_raymarching_tpu_torch.ops.cuda import march_shade_kernel as k1
 from burn_raymarching_tpu_torch.ops.cuda import shade_kernel as k2
+from burn_raymarching_tpu_torch.tools import kernel_cases as kc
 
 GROUPS = ("centers", "colors", "radii", "light_dir", "ambient")
 M, PAD, K = 6, 4, 24.0
@@ -460,3 +462,59 @@ def test_cuda_backward_rejects_too_many_slots(cuda_device):
     with pytest.raises(ValueError):
         k2.launch_shade_bwd(rays, rays, rays[:, :1].contiguous(), rays, table,
                             K, rays)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("live,slots",
+                         [(kc.M_LIVE, kc.M_SLOTS), kc.K2_NARROW])
+def test_cuda_kernels_at_the_main_path_inputs(cuda_device, live, slots):
+    """K2 on config 1's main-path inputs (kernel_cases.main_path_inputs:
+    16,384 dango rays, ``live`` random primitives in ``slots`` slots, t and
+    normals from K1), as the training step calls it: the pack kernel
+    bitwise its plain table; the forward within 1e-5 of the plain tail; the
+    five gradients within 1e-3 of each plain group's largest entry, exactly
+    0 in padded slots and bitwise equal in a second run; and the backward
+    launch's own fixed-order sum over its partial rows, with the l̂ → light
+    projection, against ``sum(0)`` of the same rows."""
+    dev = cuda_device
+    ro, rd, padded, mask, activate, cot = kc.main_path_inputs(dev, live,
+                                                              slots)
+    with torch.no_grad():
+        c, col, r, ld, amb = activate(padded)
+        t, n = k1.march_shade(ro, rd, c, r, kc.K1_K, mask=mask)
+    pack = (c, r, col, mask, ld, amb)
+    table = k2.pack_shade_table(*pack)
+    assert torch.equal(table, k2.shade_table(*pack))
+    with torch.no_grad():
+        out_k, out_p = (fn(ro, rd, t, n, c, r, col, ld, amb, kc.K1_K,
+                           mask=mask)
+                        for fn in (k2.shade_fused, k2.shade_plain))
+    assert (out_k - out_p).abs().max().item() <= 1e-5
+
+    def grads(fn):
+        c_, col_, r_, ld_, amb_ = activate(padded)
+        out = fn(ro, rd, t, n, c_, r_, col_, ld_, amb_, kc.K1_K, mask=mask)
+        return torch.autograd.grad((out * cot).sum(),
+                                   list(padded.parameters()))
+
+    g_k, g_p = grads(k2.shade_fused), grads(k2.shade_plain)
+    for a, b in zip(g_k, g_p):
+        assert (a - b).abs().max().item() <= 1e-3 * b.abs().max().item() + 1e-6
+    for g in g_k[:3]:
+        assert bool((g[live:] == 0).all())
+    for a, b in zip(g_k, grads(k2.shade_fused)):
+        assert torch.equal(a, b)
+
+    *d_all, partial = k2.launch_shade_bwd(ro, rd, t, n, table, kc.K1_K, cot)
+    total = partial.sum(0)
+    m = slots
+    lhat, l_norm = table[2 * m, :3], table[2 * m + 1, 0]
+    d_lhat = total[7 * m:7 * m + 3]
+    want = torch.cat([total[:3 * m].reshape(3, m).T.reshape(-1),
+                      total[3 * m:4 * m],
+                      total[4 * m:7 * m].reshape(3, m).T.reshape(-1),
+                      (d_lhat - lhat * torch.sum(lhat * d_lhat)) / l_norm,
+                      total[7 * m + 3:]])
+    got = torch.cat([x.reshape(-1) for x in d_all])
+    tol = 1e-5 * partial.abs().sum(0).max().item() + 1e-6
+    assert (got - want).abs().max().item() <= tol

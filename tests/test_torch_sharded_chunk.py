@@ -23,10 +23,15 @@ eagerly, bitwise:
 * (c) the 1 x 1 DistributedTrainer, captured, against the same trainer
   forced to one step at a time by a subclass's ``_replays_graphs``;
 * (d) the same on two NCCL ranks, one per card, at 1 x 2 and 2 x 1
-  (skips with fewer than two cards).
+  (skips with fewer than two cards);
+* (e) the 1 x 1 DistributedTrainer on a one-stage cut of config 4 against
+  the plain Trainer started from the same init in the sharded trainer's
+  Morton row order.
 """
 
 from __future__ import annotations
+
+import gc
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +41,7 @@ import torch
 import torch_dist
 
 from torch_dist import C1_CUT, C4_CUT, morton_rays
+from torch_parity import c4_knot_set  # noqa: F401
 
 from burn_raymarching_tpu_torch.config import TrainConfig
 from burn_raymarching_tpu_torch.models.scene import PARAM_KEYS
@@ -501,3 +507,59 @@ def test_cuda_two_card_nccl_captured_matches_eager(tmp_path, data, model):
         np.testing.assert_array_equal(res[0]["graphs"]["params"][k],
                                       res[1]["graphs"]["params"][k])
 
+
+def _sharded_run(cfg, ds):
+    """``DistributedTrainer(cfg, ds)`` on the 1 x 1 mesh of the NCCL world
+    → (its params, mask and "graphs" event, its init). The trainer, whose
+    captured graphs hold NCCL kernels, is gone when this returns."""
+    from burn_raymarching_tpu_torch.parallel.distributed import (
+        DistributedTrainer,
+    )
+
+    tr = DistributedTrainer(cfg, ds, data=1, model=1, log=lambda s: None)
+    padded, mask = tr.run()
+    (ran,) = [e for e in tr.events if e["kind"] == "graphs"]
+    init = tr._init_params()
+    del tr
+    gc.collect()
+    return padded, mask, ran, init
+
+
+@pytest.mark.cuda
+def test_cuda_distributed_trainer_matches_the_trainer_on_its_sorted_init(
+        nccl_world, c4_knot_set, tmp_path, monkeypatch):
+    """A one-stage cut of config 4 (60 steps, tools/run_c5's recipe on its
+    knot capture) through DistributedTrainer on a 1 x 1 NCCL mesh, its
+    steps replaying captured graphs, ends bitwise where the plain Trainer
+    ends when it starts from the same init sorted in the Morton order of
+    its centers (the sharded trainer's row order; the plain Trainer keeps
+    the rows as they come)."""
+    from burn_raymarching_tpu_torch.models.scene import SceneParams
+    from burn_raymarching_tpu_torch.ops.culling import morton_order
+    from burn_raymarching_tpu_torch.tools import run_c5
+    from burn_raymarching_tpu_torch.train.loop import Trainer, build_dataset
+
+    monkeypatch.chdir(tmp_path)
+    argv = ["--out", str(tmp_path), "--data", c4_knot_set, "--views", "30",
+            "--size", "512", "--gt-n", "400", "--init-n", "5120",
+            "--cull-budget", "2048", "--merge-cell", "0.04", "--stages", "1",
+            "--steps", "60", "--skip-ceiling"]
+    cfg = run_c5.build_config(run_c5.make_parser().parse_args(argv),
+                              c4_knot_set)
+    ds = build_dataset(cfg, device=nccl_world)
+    p_d, m_d, ran, init = _sharded_run(cfg, ds)
+    assert ran["graphs"] is True
+    idx = torch.as_tensor(morton_order(init.centers.detach().cpu().numpy()),
+                          device=nccl_world)
+
+    class SortedInit(Trainer):
+        def _init_params(self):
+            p = super()._init_params()
+            return SceneParams(*(getattr(p, k).detach()[idx]
+                                 for k in PARAM_KEYS[:3]),
+                               p.light_dir.detach(), p.ambient.detach())
+
+    p_s, m_s = SortedInit(cfg, ds, log=lambda s: None).run()
+    assert int(m_d.sum()) == int(m_s.sum()) == init.n
+    for k in PARAM_KEYS:
+        assert torch.equal(getattr(p_d, k), getattr(p_s, k)), k

@@ -11,7 +11,7 @@ rows than the budget; the wrapper on CPU tensors is the plain version, in
 ``culled_tables`` and in a culled step.
 
 On the card (``cuda``): K7 against the plain selection run on K7's own
-cones (chip_smoke.k7_compare: slots equal but where a score lies within
+cones (kernel_cases.k7_compare: slots equal but where a score lies within
 1e-6·(1 + |score|) of the one the plain table holds there, of the tile's
 cutoff or of an overflowing tile's K-th score; the invalid tail ascending;
 cs, rs, qs bitwise the gathers of its idx) on config 4's ray tiles at
@@ -40,6 +40,7 @@ from burn_raymarching_tpu_torch.ops.culling import (
     cone_point_distance,
     tile_cones,
 )
+from burn_raymarching_tpu_torch.tools import kernel_cases as kc
 
 B, T = 4, 24
 SMOOTH_K = 128.0
@@ -171,12 +172,10 @@ def _against_cone(ro, rd, c, r, mask, budget, cones):
 @pytest.mark.parametrize("part", ["none", "apex", "axis", "cos_half",
                                   "origin_spread"])
 def test_the_card_check_fails_a_selection_against_a_wrong_cone(part):
-    """chip_smoke.k7_compare (the check of K7 on the card) passes the plain
+    """kernel_cases.k7_compare (the check of K7 on the card) passes the plain
     tables on tile_cones' cones, and fails tables that are consistent with
     a cone other than tile_cones': the slots then agree with a selection on
     that cone, and the cone gap alone fails them."""
-    import chip_smoke
-
     ro, rd, c, r, mask, budget = _case("spread")
     cones = tile_cones(ro, rd, T)
     if part != "none":
@@ -189,15 +188,14 @@ def test_the_card_check_fails_a_selection_against_a_wrong_cone(part):
             value = value / value.norm(dim=1, keepdim=True)
         cones = cones._replace(**{part: value})
     out = _against_cone(ro, rd, c, r, mask, budget, cones)
-    cmp = chip_smoke.k7_compare(torch, ro, rd, c, r, SMOOTH_K, budget, mask,
-                                out)
+    cmp = kc.k7_compare(ro, rd, c, r, SMOOTH_K, budget, mask, out)
     assert cmp["tail_ascending"] and cmp["gathers_bitwise"]
     assert cmp["slots_apart_within_tol"] == 0
     if part == "none":
         assert cmp["bad"] == 0 and cmp["cone_max_abs_gap"] == 0.0
     else:
         assert cmp["bad"] == 1
-        assert cmp["cone_max_abs_gap"] > chip_smoke.K7_CONE_TOL
+        assert cmp["cone_max_abs_gap"] > kc.K7_CONE_TOL
 
 
 def _trainer(tmp_path, device, **kw):
@@ -274,26 +272,22 @@ LIVE = {16: 12, 128: 100, 2048: 1340, 8192: 5120, 51200: 51200,
 
 @pytest.fixture(scope="module")
 def c4_rays():
-    """Config 4's 32 Morton ray tiles of 512 rays (chip_smoke.c4_tiles)."""
-    import chip_smoke
-
+    """Config 4's 32 Morton ray tiles of 512 rays (kernel_cases.c4_tiles)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
     dev = torch.device("cuda", 0)
-    _, mask, c, r = chip_smoke.knot_cloud(torch, dev, chip_smoke.C4_INIT_N)
-    args, _ = chip_smoke.c4_tiles(torch, dev, c, r, mask)
+    _, mask, c, r = kc.knot_cloud(dev, kc.C4_INIT_N)
+    args, _ = kc.c4_tiles(dev, c, r, mask)
     return args[0].reshape(-1, 3), args[1].reshape(-1, 3)
 
 
 def _check(ro, rd, tile, c, r, k, budget, mask) -> tuple:
-    import chip_smoke
-
     call = (ro, rd, tile, c, r, k, budget, mask)
     out = k7.launch_tile_select(*call, with_cones=True)
     torch.cuda.synchronize()
-    cmp = chip_smoke.k7_compare(torch, ro, rd, c, r, k, budget, mask, out)
+    cmp = kc.k7_compare(ro, rd, c, r, k, budget, mask, out)
     assert cmp["bad"] == 0, cmp
-    assert cmp["cone_max_abs_gap"] <= chip_smoke.K7_CONE_TOL, cmp
+    assert cmp["cone_max_abs_gap"] <= kc.K7_CONE_TOL, cmp
     again = k7.launch_tile_select(*call, with_cones=True)
     assert all(torch.equal(a, b) for a, b in zip(out, again))
     return out, cmp
@@ -304,14 +298,11 @@ def _check(ro, rd, tile, c, r, k, budget, mask) -> tuple:
 @pytest.mark.parametrize("m", [16, 128, 2048, 8192, 51200, 65536])
 def test_cuda_kernel_matches_the_plain_selection(c4_rays, m, budget):
     """Config 4's tiles against a knot cloud of M rows, K slots."""
-    import chip_smoke
-
     dev = c4_rays[0].device
-    _, mask, c, r = chip_smoke.knot_cloud(torch, dev, LIVE[m])
+    _, mask, c, r = kc.knot_cloud(dev, LIVE[m])
     c, r, mask = (c[:m].contiguous(), r[:m].contiguous(),
                   mask[:m].contiguous())
-    out, cmp = _check(*c4_rays, chip_smoke.C4_TILE, c, r, chip_smoke.C4_K,
-                      budget, mask)
+    out, cmp = _check(*c4_rays, kc.C4_TILE, c, r, kc.C4_K, budget, mask)
     assert out[0].shape == (32, min(budget, m))
 
 
@@ -339,13 +330,10 @@ def test_cuda_kernel_keeps_the_rule_on_the_cpu_cases(cuda_device, name):
 def test_cuda_captured_launch_replays_bitwise(c4_rays):
     """A launch recorded in a CUDA graph, replayed, writes what the eager
     launch writes; smooth_k is read from device memory at replay."""
-    import chip_smoke
-
     dev = c4_rays[0].device
-    _, mask, c, r = chip_smoke.knot_cloud(torch, dev, chip_smoke.C4_INIT_N)
+    _, mask, c, r = kc.knot_cloud(dev, kc.C4_INIT_N)
     k = torch.tensor([96.0], device=dev)
-    call = (*c4_rays, chip_smoke.C4_TILE, c, r, k, chip_smoke.C4_BUDGET,
-            mask)
+    call = (*c4_rays, kc.C4_TILE, c, r, k, kc.C4_BUDGET, mask)
     eager = [x.clone() for x in k7.launch_tile_select(*call)]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())

@@ -23,6 +23,7 @@ from burn_raymarching_tpu.tools import viewer_offline as jview
 from burn_raymarching_tpu_torch.data.image_io import read_png
 from burn_raymarching_tpu_torch.data.scene_io import load_scene_json
 from burn_raymarching_tpu_torch.ops.cuda import march_shade_kernel as k1
+from burn_raymarching_tpu_torch.tools import kernel_cases as kc
 from burn_raymarching_tpu_torch.tools import viewer_offline as view
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -38,13 +39,11 @@ def u8(img) -> np.ndarray:
 
 
 def assert_frames_agree(got, want):
-    diff = np.abs(u8(got) - u8(want))
-    assert diff.mean() < 0.05, diff.mean()
-    assert (diff > 2).mean() < 0.002, (diff > 2).mean()
-    lit_g = np.asarray(got).reshape(-1, 3).sum(1) > 0
-    lit_w = np.asarray(want).reshape(-1, 3).sum(1) > 0
-    assert (lit_g == lit_w).mean() >= 0.995
-    return lit_w.mean()
+    gaps = kc.u8_gaps(got, want)
+    assert gaps["mean_lsb"] < 0.05, gaps
+    assert gaps["share_over_2_lsb"] < 0.002, gaps
+    assert gaps["lit_mismatch_share"] <= 0.005, gaps
+    return (np.asarray(want).reshape(-1, 3).sum(1) > 0).mean()
 
 
 @pytest.fixture(scope="module")
@@ -188,9 +187,10 @@ def test_video_without_imageio_fails_clearly(tmp_path, monkeypatch):
 def test_cuda_k1_at_the_viewer_shape(cuda_device):
     """K1 against its plain version on the viewer's path: M = 2,435 from
     the tracked c5 scene (the kernel's chunk-by-chunk branch), 64² rays from
-    the default orbit pose, k = 32. t and normals at chip_smoke.py's K1
-    tolerances (normals: or 5x the plain version's own gap to float64 plus
-    1e-5, where the march is noisier); the frame within the uint8 bounds."""
+    the default orbit pose, k = 32. t and normals at K1's fixed
+    tolerances (kernel_cases.MARCH_TOLS; or 5x the plain version's own gap
+    to float64 plus 1e-5, where the march is noisier); the frame within the
+    uint8 bounds."""
     dev = cuda_device
     scene = load_scene_json(C5_SCENE)
     c, col, r, ld, amb = view.scene_tensors(scene, dev)
@@ -201,20 +201,28 @@ def test_cuda_k1_at_the_viewer_shape(cuda_device):
     t_p, n_p = k1.march_shade_plain(ro, rd, c, r, view.VIEW_K)
     t_64, n_64 = k1.march_shade_plain(ro.double(), rd.double(), c.double(),
                                       r.double(), view.VIEW_K)
-    hit = t_64[:, 0] < 10.0
-    assert int(hit.sum()) > 400
-
-    def gaps(t_a, n_a, t_b, n_b):
-        dt = (t_a.double() - t_b.double()).abs()[:, 0]
-        return (dt[hit].max().item(),
-                (dt / (1.0 + t_b.double()[:, 0].abs())).max().item(),
-                (n_a.double() - n_b.double())[hit].abs().max().item())
-
-    noise = gaps(t_p, n_p, t_64, n_64)
-    for gap, fixed, own in zip(gaps(t_k, n_k, t_p, n_p), (1e-2, 2e-3, 5e-3),
-                               noise):
-        assert gap <= max(fixed, 5.0 * own + 1e-5), (gap, noise)
+    errs = kc.march_errors(t_k, n_k, t_p, n_p)
+    assert errs["hit_rays"] > 400, errs
+    noise = kc.march_noise_tols(t_p, n_p, t_64, n_64)
+    tols = {key: max(tol, noise[key]) for key, tol in kc.MARCH_TOLS.items()}
+    assert not kc.march_excess(errs, tols), (errs, tols)
     got = view.train_shade(ro, rd, c, col, r, ld, amb, chunk=1024)
     want = view.train_shade(ro, rd, c, col, r, ld, amb, chunk=1024,
                             march_normal_fn=None)
     assert_frames_agree(nn(got), nn(want))
+
+
+@pytest.mark.cuda
+def test_cuda_viewer_model_float32_frame_matches_float64(cuda_device):
+    """The viewer model (the HTTP viewer's default, plain PyTorch) on the
+    card: its float32 frame of the tracked c5 scene (2,435 spheres) at 128²
+    from the default orbit pose against the same frame in float64, within
+    the uint8 bounds."""
+    scene = load_scene_json(C5_SCENE)
+    params = view.scene_tensors(scene, cuda_device)
+    ro, rd = (tt(x).to(cuda_device)
+              for x in j_rays(128, 128, EYE, [0, 0, 0], 50.0))
+    f32 = view._viewer_shade(ro, rd, *params)
+    f64 = view._viewer_shade(ro.double(), rd.double(),
+                             *(p.double() for p in params))
+    assert assert_frames_agree(nn(f32), nn(f64)) > 0.1

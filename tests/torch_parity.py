@@ -8,9 +8,22 @@ and skips without a card.
 
 from __future__ import annotations
 
-import numpy as np
-import pytest
-import torch
+import os
+
+# libkineto keeps CUPTI set up from a process's first torch.profiler session
+# to its end; on an H100 a session that starts minutes later then loses the
+# device events at the start of its window (the card tests that read a
+# trace lost the first replay's kernels when run after the other card
+# tests, and passed alone). With TEARDOWN_CUPTI=1 libkineto finalizes CUPTI
+# after every trace, so each profiler session starts from a fresh CUPTI.
+# libkineto reads the variable at run time (torch's profiler itself sets it
+# during a session), so setting it here, when the test modules are
+# collected and before any test starts a profiler, is enough.
+os.environ.setdefault("TEARDOWN_CUPTI", "1")
+
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
 
 # Tier-1 runs several pytest workers; keep torch's intra-op pool small.
 torch.set_num_threads(2)
@@ -113,6 +126,27 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
     return torch.device("cuda", 0)
+
+
+# Config 4's knot capture: views at size², GT spheres.
+C4_SET = dict(views=30, size=512, gt_n=400)
+_C4_KNOT_SET: list[str] = []
+
+
+@pytest.fixture(scope="session")
+def c4_knot_set(tmp_path_factory):
+    """Config 4's knot capture (C4_SET), written by the port's generator on
+    the card once a process: each module that imports this fixture gets a
+    fixture of its own from pytest, so the first one keeps the path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    if not _C4_KNOT_SET:
+        from burn_raymarching_tpu_torch.tools import generate, run_c5
+
+        data = str(tmp_path_factory.mktemp("c4_card") / "data")
+        generate.main(run_c5.generate_argv(data, **C4_SET))
+        _C4_KNOT_SET.append(data)
+    return _C4_KNOT_SET[0]
 
 
 def _table_dists(p: torch.Tensor, table: torch.Tensor, n: int):
