@@ -216,8 +216,8 @@ __device__ __forceinline__ bool sum_tree(const float* part, int rows, int row,
 }
 
 // The shared-memory side of one block's primitive table: ``n`` the columns
-// to visit (see live_columns); cq/rr the staged copy of up to ``cap``
-// columns. A table type of the core adds its global arrays and two
+// to visit (live_columns, march_columns); cq/rr the staged copy of up to
+// ``cap`` columns. A table type of the core adds its global arrays and two
 // members, live(j) and stage(c0, len), as MarchTable does (K5's is
 // march_variants.cu's VariantTable).
 struct StagedColumns {
@@ -262,11 +262,10 @@ struct MarchTable : StagedColumns {
 };
 
 // Number of leading columns that hold every live slot (Tab::live): 1 + the
-// last live column, or m when no slot is live (the soft-min of an
-// all-masked table is the masked distance itself). The trailing columns are
-// all masked; each adds exactly 0 to a sum whose max comes from a live
-// column, so the march never visits them. Every thread of the block must
-// call it (``scratch`` is one shared int).
+// last live column, 0 when no slot is live. The trailing columns are all
+// masked; each adds exactly 0 to a sum whose max comes from a live column,
+// so the kernels skip them. Every thread of the block must call it
+// (``scratch`` is one shared int).
 template <class Tab>
 __device__ __forceinline__ int live_columns(const Tab& tab, int m,
                                             int* scratch) {
@@ -277,8 +276,24 @@ __device__ __forceinline__ int live_columns(const Tab& tab, int m,
     if (tab.live(j)) last = j + 1;
   if (last > 0) atomicMax(scratch, last);  // integer max: order-free
   __syncthreads();
-  const int n = *scratch;
-  return n > 0 ? n : m;
+  return *scratch;
+}
+
+// The columns a march visits (K1, K3, K5): live_columns, or the first
+// column alone when no slot is live. An all-masked table gives the same
+// bits from its first column as from all m: every masked column has
+// |c|^2 = 1e30, so the columns' q (>= 1e30) differ only by -2 p.c and
+// their soft-min terms v (~ -1e15 k) only by r k, each far below an ulp,
+// and with m equal terms the soft-min is v itself (log(m) is below an ulp
+// of v too). So the first step takes t to MARCH_T_MAX, the reattach point
+// lies ~1e15 out, where +-eps moves q by far less than an ulp, the six
+// normal evaluations read one value and the normal is exactly 0, whatever
+// m is. (Under K5's COORD the mask is a far center instead: an all-masked
+// table then reads its first column's distance.)
+template <class Tab>
+__device__ __forceinline__ int march_columns(const Tab& tab, int m,
+                                             int* scratch) {
+  return max(live_columns(tab, m, scratch), 1);
 }
 
 // Soft-min of R points per lane group against the table, in one pass:
@@ -508,7 +523,7 @@ __device__ __forceinline__ void dense_march(
   tab.cap = MS_CHUNK;
   tab.cq = cq;
   tab.rr = rr;
-  tab.n = live_columns(tab, m, &n_live);
+  tab.n = march_columns(tab, m, &n_live);
   tab.resident = tab.n <= MS_CHUNK;
   if (tab.resident) tab.stage(0, tab.n);
 

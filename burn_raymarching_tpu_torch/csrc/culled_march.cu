@@ -27,8 +27,12 @@
 // (b) one pass per evaluation (online soft-min): one sqrt and one exp per
 //     pair, where two passes took two sqrt;
 // (c) only the leading columns up to the last valid slot are staged and
-//     visited (live_columns): selection puts a tile's valid slots first and
-//     most tiles fill a fraction of the budget;
+//     visited (march_columns): selection puts a tile's valid slots first
+//     and most tiles fill a fraction of the budget. A tile with no valid
+//     slot (~45% of config 4's tiles in the prefill, and of the step's
+//     uniformly drawn ones) visits its first column alone, which gives the
+//     bits of all K masked columns: t reaches MARCH_T_MAX on the first
+//     step, and the six normal evaluations read one value (normal 0);
 // (d) a block holds CM_WARPS x CM_RAYS = 16 rays of one tile, so config 4's
 //     32 tiles x 512 rays make 1,024 blocks over the 132 SMs; it stages its
 //     tile's table once (K = 2,048: 40 KB; up to CM_CHUNK = 4,096 columns,
@@ -63,7 +67,7 @@ culled_march_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
   tab.cap = min(kk, CM_CHUNK);
   tab.cq = smem;
   tab.rr = reinterpret_cast<float*>(smem + tab.cap);
-  tab.n = live_columns(tab, kk, &n_live);
+  tab.n = march_columns(tab, kk, &n_live);
   tab.resident = tab.n <= tab.cap;
   if (tab.resident) tab.stage(0, tab.n);
 

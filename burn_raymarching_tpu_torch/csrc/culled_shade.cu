@@ -121,7 +121,6 @@ __device__ __forceinline__ void open_tile(TileTable& tb, int b, int k_slots,
   tb.cq = smem;
   tb.rc = smem + tb.cap;
   tb.n = live_columns(tb, k_slots, scratch);
-  if (tb.n == k_slots && !tb.live(k_slots - 1)) tb.n = 0;
   tb.resident = tb.n <= tb.cap;
   if (tb.resident && tb.n > 0) tb.stage(0, tb.n);
 }

@@ -18,14 +18,17 @@ Cases: K1 at config 1's table widths (7 live in 8 slots, 25 in 32, 100 in
 128; 16,384 dango rays, 40 steps); K2 (``shade_fused``) at 100 live of 128
 slots and 10 of 16; K3 at config 4's shape (32 tiles x 512 rays, K = 2,048,
 k = 128) cold (40 steps) and warm (16), its chunked path (8 tiles, 8,192
-live columns), and the config-4 shape with every slot live (no imbalance
-between tiles); K4 (``repulsion_sum``) at C = 80 and C = 800, member and
-monopole; K5 (``variant_march``) in its eight variants at the variant
-tool's shape (16,384 rays, 100 live of 128 slots, 128 rays a block), 40
-and 16 steps; K6 (``culled_shade``) on config 4's 32 tiles and on 4 tiles
-of 2,048 valid slots each; K7 (``tile_select``) on config 4's 32 tiles at
-config 4's step table (8,192 slots of 5,120 spheres, K = 2,048), a later
-stage's prefill table (2,048 slots of 1,340 spheres) and the bench
+live columns), the config-4 shape with every slot live (no imbalance
+between tiles), and two with the tiles whose selection kept no slot (which
+the others leave out): a prefill batch of 32 consecutive Morton tiles of
+one view, cold, and 32 tiles drawn as the step's sampler draws them at a
+0.6 uniform share, warm; K4 (``repulsion_sum``) at C = 80 and C = 800,
+member and monopole; K5 (``variant_march``) in its eight variants at the
+variant tool's shape (16,384 rays, 100 live of 128 slots, 128 rays a
+block), 40 and 16 steps; K6 (``culled_shade``) on config 4's 32 tiles and
+on 4 tiles of 2,048 valid slots each; K7 (``tile_select``) on config 4's 32
+tiles at config 4's step table (8,192 slots of 5,120 spheres, K = 2,048), a
+later stage's prefill table (2,048 slots of 1,340 spheres) and the bench
 flagship's prefill (51,200 rows, K = 256).
 
 Per case one JSON line: ``ms`` (the wrapper call between CUDA events, the
@@ -233,6 +236,17 @@ def run_k3(torch, kc, dev) -> list[dict]:
     rows.append({"kernel": "K3",
                  "case": f"warm16 K={kc.C4_BUDGET} all slots live",
                  **case((args[0], args[1], *full), 16, t_init)})
+    # With the tiles that keep no valid slot, which the cases above leave
+    # out: a prefill batch, cold, and a step's sampled tiles, warm.
+    pf_args, pf_stats = kc.c4_prefill_tiles(dev, c, r, mask)
+    rows.append({"kernel": "K3", "case": f"prefill cold K={kc.C4_BUDGET}",
+                 **pf_stats, **case(pf_args, 40)})
+    st_args, st_stats = kc.c4_step_tiles(dev, c, r, mask)
+    st_init = (culled_march_normals_xla(*st_args, kc.C4_K)[0]
+               * 0.8).contiguous()
+    rows.append({"kernel": "K3",
+                 "case": f"step mix 0.6 warm16 K={kc.C4_BUDGET}",
+                 **st_stats, **case(st_args, 16, st_init)})
     return rows
 
 

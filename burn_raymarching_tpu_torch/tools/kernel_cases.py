@@ -5,7 +5,9 @@ tests (``tests/test_torch_*.py``) and the on-card kernel timer
 Inputs at the main paths' shapes: 16,384 rays of config 1's dango rig
 against a random table (``main_path_inputs``); config 4's knot-seeded cloud
 (``knot_cloud``), its Morton ray tiles with their top-K tables
-(``c4_tiles``), K3's chunked path (``chunked_tiles``), tables with every
+(``c4_tiles``; a prefill batch, ``c4_prefill_tiles``, and a step's sampled
+tiles, ``c4_step_tiles``, both with tiles that keep no valid slot), K3's
+chunked path (``chunked_tiles``), tables with every
 slot valid (``full_tables``) and K6's inputs on them (``k6_inputs``); the
 dry run's K3 tables (``dryrun_k3_inputs``). Checks: a march against its
 plain version (``march_errors``), held to fixed tolerances (``MARCH_TOLS``)
@@ -407,13 +409,12 @@ def knot_cloud(dev, n: int, gt_n: int = C4_GT_N):
     return padded, mask, c.detach(), r.detach()
 
 
-def c4_tiles(dev, c, r, mask, size: int = C4_SIZE, views: int = C4_VIEWS,
-             budget: int = C4_BUDGET, tiles: int = C4_TILES, draw: int = 4):
-    """``tiles`` tile-coherent ray tiles of the config-4 rig (or another
-    knot rig of ``views`` views at ``size``²) and their top-``budget``
-    tables: the Morton tiles of ``draw`` random views, selected against the
-    whole primitive table, ``tiles`` picked among those whose selection is
-    not empty → ((ro3, rd3, cs, rs, qs), valid-slot counts)."""
+def c4_selection(dev, c, r, mask, views, size: int = C4_SIZE,
+                 n_views: int = C4_VIEWS, budget: int = C4_BUDGET):
+    """The Morton-ordered rays of views ``views`` of the config-4 rig (or
+    another knot rig of ``n_views`` views at ``size``²), one after another
+    as the dataset holds them, and every C4_TILE-ray tile's top-``budget``
+    selection against the whole primitive table → (ro, rd, idx, valid)."""
     from burn_raymarching_tpu_torch.data.camera import create_camera_rays
     from burn_raymarching_tpu_torch.ops.culling import (
         select_tile_primitives,
@@ -422,11 +423,10 @@ def c4_tiles(dev, c, r, mask, size: int = C4_SIZE, views: int = C4_VIEWS,
     from burn_raymarching_tpu_torch.tools.generate import ring_cameras
     from burn_raymarching_tpu_torch.utils import morton_permutation
 
-    rng = np.random.default_rng(0)
     perm = torch.as_tensor(morton_permutation(size, size), device=dev)
-    cams = ring_cameras(views)
+    cams = ring_cameras(n_views)
     ro_all, rd_all = [], []
-    for v in rng.choice(views, draw, replace=False):
+    for v in views:
         ro, rd = create_camera_rays(size, size, cams[v]["origin"],
                                     cams[v]["target"], cams[v]["fov"],
                                     device=dev)
@@ -435,9 +435,12 @@ def c4_tiles(dev, c, r, mask, size: int = C4_SIZE, views: int = C4_VIEWS,
     ro, rd = torch.cat(ro_all), torch.cat(rd_all)
     idx, valid = select_tile_primitives(tile_cones(ro, rd, C4_TILE), c, r,
                                         C4_K, budget, mask=mask)
-    live = torch.nonzero(valid.sum(dim=1) > 0)[:, 0].cpu().numpy()
-    pick = torch.as_tensor(np.sort(rng.choice(live, tiles, replace=False)),
-                           device=dev)
+    return ro, rd, idx, valid
+
+
+def picked_tiles(c, r, ro, rd, idx, valid, pick):
+    """The tiles ``pick`` of a c4_selection → ((ro3, rd3, cs, rs, qs),
+    valid-slot counts and the tiles with none)."""
     idx, valid = idx[pick], valid[pick]
     cs = c[idx]
     rs = r.reshape(-1)[idx]
@@ -448,7 +451,61 @@ def c4_tiles(dev, c, r, mask, size: int = C4_SIZE, views: int = C4_VIEWS,
     counts = valid.sum(dim=1)
     return (ro3, rd3, cs, rs, qs), {"valid_per_tile_min": int(counts.min()),
                                     "valid_per_tile_max": int(counts.max()),
-                                    "valid_slots": int(counts.sum())}
+                                    "valid_slots": int(counts.sum()),
+                                    "empty_tiles": int((counts == 0).sum())}
+
+
+def c4_tiles(dev, c, r, mask, size: int = C4_SIZE, views: int = C4_VIEWS,
+             budget: int = C4_BUDGET, tiles: int = C4_TILES, draw: int = 4):
+    """``tiles`` tile-coherent ray tiles of the config-4 rig (or another
+    knot rig of ``views`` views at ``size``²) and their top-``budget``
+    tables: the Morton tiles of ``draw`` random views, selected against the
+    whole primitive table, ``tiles`` picked among those whose selection is
+    not empty → ((ro3, rd3, cs, rs, qs), valid-slot counts)."""
+    rng = np.random.default_rng(0)
+    ro, rd, idx, valid = c4_selection(
+        dev, c, r, mask, rng.choice(views, draw, replace=False), size,
+        views, budget)
+    live = torch.nonzero(valid.sum(dim=1) > 0)[:, 0].cpu().numpy()
+    pick = torch.as_tensor(np.sort(rng.choice(live, tiles, replace=False)),
+                           device=dev)
+    return picked_tiles(c, r, ro, rd, idx, valid, pick)
+
+
+def c4_prefill_tiles(dev, c, r, mask, size: int = C4_SIZE,
+                     tiles: int = C4_TILES, view: int = 0):
+    """K3's inputs in one batch of config 4's prefill, which marches every
+    pixel cold: ``tiles`` consecutive Morton tiles of view ``view``, tiles
+    whose selection kept no slot included. Of the view's batches, the one
+    whose count of such tiles is nearest the view's mean (the first of
+    equals) → ((ro3, rd3, cs, rs, qs), counts as picked_tiles')."""
+    ro, rd, idx, valid = c4_selection(dev, c, r, mask, [view], size)
+    empty = (~valid.any(dim=1)).reshape(-1, tiles).sum(dim=1).double()
+    batch = int(torch.argmin((empty - empty.mean()).abs()))
+    pick = torch.arange(batch * tiles, (batch + 1) * tiles, device=dev)
+    return picked_tiles(c, r, ro, rd, idx, valid, pick)
+
+
+def c4_step_tiles(dev, c, r, mask, uniform: float = 0.6,
+                  size: int = C4_SIZE, tiles: int = C4_TILES,
+                  draw: int = 4):
+    """K3's inputs in a config-4 training step, whose sampler draws whole
+    Morton tiles: round(``uniform`` × ``tiles``) uniformly among every tile
+    of ``draw`` random views, the rest among those whose selection is not
+    empty (standing in for the tiles that hold foreground), with
+    replacement, in tile order (0.6 is the uniform share halfway through
+    config 4's 0.8 → 0.4 schedule) → ((ro3, rd3, cs, rs, qs), counts as
+    picked_tiles')."""
+    rng = np.random.default_rng(1)
+    ro, rd, idx, valid = c4_selection(
+        dev, c, r, mask, rng.choice(C4_VIEWS, draw, replace=False), size)
+    live = torch.nonzero(valid.any(dim=1))[:, 0].cpu().numpy()
+    n_uniform = round(uniform * tiles)
+    pick = np.sort(np.concatenate([
+        rng.integers(0, valid.shape[0], n_uniform),
+        rng.choice(live, tiles - n_uniform)]))
+    return picked_tiles(c, r, ro, rd, idx, valid,
+                        torch.as_tensor(pick, device=dev))
 
 
 def chunked_tiles(dev, ro3, rd3):

@@ -248,9 +248,11 @@ class Tracer:
     quality. What a step counts while a CUDA graph is
     captured is kept with the capture and added once per replay
     (``replayed``); a graph captured while the tracer was off counts only
-    its replays. One device counter: the valid culled-table entries the
-    steps select (``add_valid``), an int64 on the card that a captured step
-    adds into on every replay, read once by ``records``. At each capture
+    its replays. Device counters (``add_valid``): the valid culled-table
+    entries the steps select and their tiles that keep a valid slot, an
+    int64 pair on the card that a captured step adds into on every replay,
+    read once by ``records`` (which reports the second as ``empty_tiles``,
+    the tiles that keep none). At each capture
     made while on, the phase map: how many device events (kernel, copy and
     memset nodes) the graph gained in each span, in capture order
     (``attribute`` reads it)."""
@@ -314,24 +316,28 @@ class Tracer:
                     self.counters[name] += k * replays
 
     def device_counter(self, device) -> torch.Tensor:
-        """The int64 on ``device`` that steps add their valid table entries
-        into; a capture makes it before it begins, so that the graph adds
-        into it."""
+        """The int64 pair on ``device`` that steps add into: their valid
+        table entries, and their tiles that keep a valid slot; a capture
+        makes it before it begins, so that the graph adds into it."""
         key = str(torch.device(device))
         if key not in self._valid:
-            self._valid[key] = torch.zeros((), dtype=torch.int64,
+            self._valid[key] = torch.zeros(2, dtype=torch.int64,
                                            device=device)
         return self._valid[key]
 
     def add_valid(self, valid: torch.Tensor) -> None:
-        """Add the count of ``valid``'s true entries to the device
-        counter."""
+        """Add a step's selection ``valid`` [tiles, K] to the device
+        counters: its true entries, and its tiles whose first slot is valid.
+        Every selection keeps a tile's valid slots first, so those are the
+        tiles that keep any."""
         if not self.on:
             return
         if (str(valid.device) not in self._valid and valid.is_cuda
                 and torch.cuda.is_current_stream_capturing()):
             return  # made inside a capture, each replay would zero it
-        self.device_counter(valid.device).add_(valid.sum())
+        counter = self.device_counter(valid.device)
+        counter[0].add_(valid.sum())
+        counter[1].add_(valid[:, 0].sum())
 
     @contextlib.contextmanager
     def capture(self, stream, nodes: Optional[Callable[[], dict]] = None):
@@ -361,13 +367,16 @@ class Tracer:
                 "per_replay": dict(pm.per_replay), "error": pm.error})
 
     def records(self) -> dict:
-        """What was kept: spans, counters (with ``valid_entries``, read from
-        the device once, when steps have counted table slots) and
-        captures."""
+        """What was kept: spans, counters (with ``valid_entries`` and
+        ``empty_tiles``, the counted tiles less those that keep a valid
+        slot, read from the device once, when steps have counted table
+        slots) and captures."""
         counters = dict(self.counters)
         if counters.get("table_slots"):
-            counters["valid_entries"] = sum(int(t)
-                                            for t in self._valid.values())
+            totals = [sum(int(t[i]) for t in self._valid.values())
+                      for i in range(2)]
+            counters["valid_entries"] = totals[0]
+            counters["empty_tiles"] = counters.get("tiles", 0) - totals[1]
         return {"spans": [dict(zip(_SPAN_KEYS, s)) for s in self._done],
                 "counters": counters,
                 "captures": [dict(c) for c in self.captures]}

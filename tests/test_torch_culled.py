@@ -183,6 +183,32 @@ def test_online_soft_min_matches_two_pass(scene, lanes):
     assert 48.0 < want[0, 0].item() < 50.0
 
 
+@pytest.mark.parametrize("k", [5.0, 128.0])
+def test_an_all_masked_tile_marches_alike_on_one_masked_column(scene, k):
+    """The invariant K3 (and K1) rely on to visit one column of a table
+    with no valid slot: an all-masked tile marched against K = 2,048
+    masked columns (centers and radii as a selection leaves them in its
+    tail) gives bitwise the t and normals of the same tile against its
+    first column alone, cold and warm; t is exactly 1e4 (the cap, reached
+    on the first step) and the normals exactly 0."""
+    ro3, rd3, *_ = (tt(x) for x in _tables(scene))
+    b, k_dim = ro3.shape[0], 2048
+    rng = np.random.default_rng(11)
+    cs = tt(rng.normal(0, 0.35, (b, k_dim, 3)).astype(np.float32))
+    rs = tt((0.05 + 0.15 * rng.random((b, k_dim))).astype(np.float32))
+    qs = torch.full((b, k_dim), 1e30)
+    t_warm = tt(rng.uniform(0.0, 4.0, ro3.shape[:2] + (1,))
+                .astype(np.float32))
+    for steps, t_init in ((40, None), (16, t_warm)):
+        t_all, n_all = tr.culled_march_normals_xla(
+            ro3, rd3, cs, rs, qs, k, num_steps=steps, t_init=t_init)
+        t_one, n_one = tr.culled_march_normals_xla(
+            ro3, rd3, cs[:, :1], rs[:, :1], qs[:, :1], k, num_steps=steps,
+            t_init=t_init)
+        assert torch.equal(t_all, t_one) and torch.equal(n_all, n_one)
+        assert torch.all(t_all == 1e4) and torch.all(n_all == 0.0)
+
+
 def _render_args(s, lib):
     if lib == "jax":
         arr = jnp.asarray
@@ -334,6 +360,38 @@ def test_cuda_kernel_matches_plain(cuda_device, k_dim):
     for steps in (40, 16):
         t_p = _k3_held(args, 128.0, steps, t_init, min_hits=51)
         t_init = t_p * 0.8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_dim", [kc.C4_BUDGET, kc.CHUNKED_K])
+def test_cuda_empty_tiles_march_on_one_column(cuda_device, k_dim):
+    """One K3 launch of tiles with and without a valid slot, cold and then
+    warm, at config 4's K = 2,048 and at K = 8,192 (whose tiles with valid
+    slots are staged chunk by chunk): each tile with none has every t
+    exactly 1e4 and t and normals bitwise those of the same tile marched on
+    its first (masked) column alone; each other tile is bitwise the same
+    tile marched in a launch of its own."""
+    dev = cuda_device
+    ro, rd, cs, rs, qs = _cuda_case(dev, 4, 250, k_dim, k_dim + 1)
+    empty = [False, True, False, True]
+    qs[torch.tensor(empty, device=dev)] = 1e30
+    t_init = None
+    for steps in (40, 16):
+        t, n = k3.culled_march_normals(ro, rd, cs, rs, qs, 128.0,
+                                       num_steps=steps, t_init=t_init)
+        for b, is_empty in enumerate(empty):
+            cols = slice(0, 1) if is_empty else slice(None)
+            t_b, n_b = k3.culled_march_normals(
+                ro[b:b + 1], rd[b:b + 1],
+                *(x[b:b + 1, cols].contiguous() for x in (cs, rs, qs)),
+                128.0, num_steps=steps,
+                t_init=None if t_init is None else t_init[b:b + 1])
+            torch.cuda.synchronize()
+            assert not is_empty or torch.all(t[b] == 1e4)
+            assert torch.equal(t[b:b + 1], t_b)
+            assert torch.equal(n[b:b + 1], n_b)
+        assert bool((t[0] < 1e4).any())
+        t_init = (t * 0.8).contiguous()
 
 
 # The paths' own shapes (kernel_cases' inputs): config 4's 32 tiles of 512

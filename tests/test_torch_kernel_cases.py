@@ -77,6 +77,44 @@ def test_the_bound_is_named_by_its_larger_term(term):
     assert got["bound_by"] == ("bytes" if term == "bytes" else "operations")
 
 
+@pytest.fixture(scope="module")
+def knot():
+    """Config 4's seeded cloud: (mask, centers, radii)."""
+    _, mask, c, r = kc.knot_cloud("cpu", kc.C4_INIT_N)
+    return mask, c, r
+
+
+def test_the_prefill_case_is_one_batch_of_a_view(knot):
+    """c4_prefill_tiles on a 128² rig (32 tiles a view, batches of 8):
+    consecutive Morton tiles of the view, holding tiles whose selection
+    kept no slot (every slot 1e30) beside tiles that kept some, and the
+    batch whose count of those is nearest the view's mean."""
+    mask, c, r = knot
+    (ro3, rd3, cs, rs, qs), stats = kc.c4_prefill_tiles("cpu", c, r, mask,
+                                                        size=128, tiles=8)
+    _, rd, _, valid = kc.c4_selection("cpu", c, r, mask, [0], 128)
+    starts = [b for b in range(4) if torch.equal(
+        rd3.reshape(-1, 3), rd[b * 8 * kc.C4_TILE:(b + 1) * 8 * kc.C4_TILE])]
+    assert len(starts) == 1
+    empty = (~valid.any(dim=1)).reshape(4, 8).sum(dim=1).double()
+    assert torch.argmin((empty - empty.mean()).abs()) == starts[0]
+    none_kept = (qs >= 1e29).all(dim=1)
+    assert 0 < int(none_kept.sum()) == stats["empty_tiles"] < 8
+    assert cs.shape == (8, kc.C4_BUDGET, 3) and ro3.shape == rd3.shape
+
+
+def test_the_step_case_draws_tiles_at_its_uniform_share(knot):
+    """c4_step_tiles on a 128² rig: 8 tiles in tile order, 5 (0.6 of 8)
+    drawn among all tiles of its views and 3 among those that kept a slot,
+    so at least 3 keep one."""
+    mask, c, r = knot
+    (ro3, _, _, _, qs), stats = kc.c4_step_tiles("cpu", c, r, mask,
+                                                 size=128, tiles=8)
+    assert ro3.shape == (8, kc.C4_TILE, 3)
+    kept = int((qs < 1e29).any(dim=1).sum())
+    assert kept >= 3 and kept + stats["empty_tiles"] == 8
+
+
 def test_frame_gaps_count_what_differs():
     """A frame against itself has no gap; one lit pixel turned black is one
     pixel lit in one frame only, and up to three channels more than 2 LSB

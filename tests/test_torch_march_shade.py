@@ -238,6 +238,32 @@ def test_cuda_kernel_table_widths(cuda_device, m, live, side):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", [128, 1500])
+def test_cuda_all_masked_table_marches_on_one_column(rays, cuda_device, m):
+    """K1 on a table with no live slot visits its first column alone: cold
+    and warm, every t is exactly 1e4 (the cap) and t and the normals are
+    bitwise those of the same rays against that masked slot alone. M =
+    1,500 is past the 1,024-slot chunk, where the live columns are staged
+    chunk by chunk."""
+    dev = cuda_device
+    ro, rd = (tt(x).to(dev) for x in rays)
+    c, r, _, _ = _random_table(3, m, m)
+    c, r = tt(c).to(dev), tt(r).to(dev)
+    mask = torch.zeros(m, dtype=torch.bool, device=dev)
+    kw = {}
+    for steps in (40, 16):
+        t_a, n_a = k1.march_shade(ro, rd, c, r, 18.5, mask=mask,
+                                  num_steps=steps, **kw)
+        t_b, n_b = k1.march_shade(ro, rd, c[:1].contiguous(),
+                                  r[:1].contiguous(), 18.5, mask=mask[:1],
+                                  num_steps=steps, **kw)
+        torch.cuda.synchronize()
+        assert torch.all(t_a == 1e4)
+        assert torch.equal(t_a, t_b) and torch.equal(n_a, n_b)
+        kw = dict(t_init=(0.8 * t_a).contiguous())
+
+
+@pytest.mark.cuda
 def test_cuda_kernel_chunked_table(cuda_device):
     """M above the kernel's 1,024-slot shared-memory chunk: the table is
     staged chunk by chunk (the path config 1 never reaches)."""

@@ -175,8 +175,9 @@ def test_a_two_stage_cpu_job_gives_the_trainer_span_tree(tmp_path, tracer):
 def test_the_culled_step_counts_its_tiles_and_valid_entries(tmp_path,
                                                             tracer):
     """A culled CPU stage: ``tiles`` is steps × batch / tile, and the device
-    counter holds the valid entries of every table the steps selected (the
-    count the benchmark makes by wrapping ``culled_tables``)."""
+    counters hold the valid entries of every table the steps selected (the
+    count the benchmark makes by wrapping ``culled_tables``) and the tiles
+    whose selection kept no slot (``empty_tiles``)."""
     from burn_raymarching_tpu_torch.train import step_body
     from burn_raymarching_tpu_torch.train.loop import Trainer, build_dataset
 
@@ -190,12 +191,13 @@ def test_the_culled_step_counts_its_tiles_and_valid_entries(tmp_path,
                       steps_dir=str(tmp_path / "steps"),
                       scene_json=str(tmp_path / "scene.json"))
     tr = Trainer(cfg, build_dataset(cfg, device="cpu"), log=lambda m: None)
-    seen = []
+    seen, empty = [], []
     real = step_body.culled_tables
 
     def counted(*args, **kwargs):
         out = real(*args, **kwargs)
         seen.append(int(out[1].sum()))
+        empty.append(int((~out[1].any(dim=1)).sum()))
         return out
 
     tr.prefill_t_cache = lambda *a, **k: None   # its tables are not steps'
@@ -211,8 +213,30 @@ def test_the_culled_step_counts_its_tiles_and_valid_entries(tmp_path,
     assert len(seen) == 6
     assert counters["valid_entries"] == sum(seen)
     assert 0 < counters["valid_entries"] <= counters["tiles"] * 8
+    assert counters["empty_tiles"] == sum(empty)
     names = _names(tracer.records()["spans"])
     assert {"step.select", "step.march", "trainer.prefill"} <= set(names)
+
+
+def test_the_device_counters_count_valid_entries_and_empty_tiles(tracer):
+    """``add_valid`` adds a selection's valid entries and its tiles that
+    keep a valid slot (selections keep a tile's valid slots first);
+    ``records`` reports the tiles that keep none as ``empty_tiles``, and
+    nothing of either before steps have counted table slots."""
+    kept = torch.tensor([3, 0, 1, 4, 0])            # valid slots of 5 tiles
+    valid = torch.arange(4)[None, :] < kept[:, None]
+    tracer.add_valid(valid)
+    assert "empty_tiles" not in tracer.records()["counters"]
+    tracer.count("tiles", 5)
+    tracer.count("table_slots", valid.numel())
+    tracer.add_valid(valid[:2])
+    tracer.count("tiles", 2)
+    tracer.count("table_slots", 8)
+    counters = tracer.records()["counters"]
+    assert counters["valid_entries"] == 8 + 3
+    assert counters["empty_tiles"] == 2 + 1
+    tracer.reset()
+    assert tracer.records()["counters"] == {}
 
 
 def test_the_phase_map_and_the_counts_of_a_replay(tracer):
