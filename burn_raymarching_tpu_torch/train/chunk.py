@@ -56,7 +56,8 @@ calling their wrappers, so the runner takes the capture's recordings back
 off the wrappers' counts (ops/cuda/build.COUNTED) and adds them, times the
 replays, once per ``run``.
 
-Tracing (utils/profiling): ``trainer.capture`` spans the whole capture and
+Tracing (utils/profiling): ``trainer.capture`` spans the whole capture
+(its attributes: the capture id, the stage and the table's ``rows``) and
 ``trainer.replay`` one ``run``'s replays; the step's own phases
 (``step.sample`` .. ``step.adam``) run as Python only at capture, where the
 tracer records the graph's phase map; the warm-up step, undone, is not
@@ -185,7 +186,8 @@ class ChunkRunner:
         self.params.zero_grad(set_to_none=True)
 
     def _capture(self, first: int) -> None:
-        with annotate("trainer.capture") as attrs:
+        with annotate("trainer.capture", stage=self.stage,
+                      rows=self.mask.numel()) as attrs:
             self._record(first)
             attrs["capture"] = self.capture_id
 

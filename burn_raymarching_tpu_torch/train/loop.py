@@ -957,7 +957,8 @@ class Trainer:
         scoring) on the live rows → next generation's params."""
         cfg = self.cfg
         with annotate("trainer.density", stage=stage):
-            live = params_to_numpy(unpad_params(padded, n_live))
+            with annotate("density.read"):
+                live = params_to_numpy(unpad_params(padded, n_live))
             split_scores = None
             if cfg.density.split_mode == "residual":
                 # Residual attribution through the compositor weights, scored
@@ -969,14 +970,22 @@ class Trainer:
                     padded, mask, self._global_dataset(),
                     self._stage_cfg(self._render_overrides_for_stage(stage)),
                     k_end, kern=self.culled_march_normal_fn)[:n_live]
-            centers, colors, radii, stats = prune_and_split(
-                live["centers"], live["colors"], live["radii"],
-                stage_init_centers, stage, cfg.stages, rng, cfg.density,
-                split_scores=split_scores)
-            params = params_from_numpy(
-                {"centers": centers, "colors": colors, "radii": radii,
-                 "light_dir": live["light_dir"], "ambient": live["ambient"]},
-                device=self.device)
+            with annotate("density.host"):
+                centers, colors, radii, stats = prune_and_split(
+                    live["centers"], live["colors"], live["radii"],
+                    stage_init_centers, stage, cfg.stages, rng, cfg.density,
+                    split_scores=split_scores)
+            with annotate("density.upload"):
+                params = params_from_numpy(
+                    {"centers": centers, "colors": colors, "radii": radii,
+                     "light_dir": live["light_dir"],
+                     "ambient": live["ambient"]},
+                    device=self.device)
+        pruned = stats.pruned_size + stats.pruned_flyaway + stats.pruned_black
+        for name, k in (("in", n_live), ("merged", stats.merged),
+                        ("pruned", pruned), ("split", stats.split),
+                        ("out", params.n)):
+            TRACER.count(f"density.{name}", k)
         self.events.append(dict(kind="density", stage=stage, n_before=n_live,
                                 n_after=params.n, kept=int(stats.kept),
                                 split=int(stats.split),

@@ -244,11 +244,14 @@ class Tracer:
     """The program's spans and counters, kept in memory while on.
 
     Host counters (``count``): jobs, stages, captures, replays, steps,
-    tiles and table slots (tiles × the culling budget), frames by
-    quality. What a step counts while a CUDA graph is
-    captured is kept with the capture and added once per replay
-    (``replayed``); a graph captured while the tracer was off counts only
-    its replays. Device counters (``add_valid``): the valid culled-table
+    tiles and table slots (tiles × the table width, the culling budget or
+    the table's rows where it has fewer), frames by quality, and what
+    density control took in, merged, pruned, split and gave out
+    (``density.in`` .. ``density.out``, summed over the boundaries). What
+    a step counts while a CUDA graph is captured is kept with the capture
+    and added once per replay (``replayed``); a graph captured while the
+    tracer was off counts only its replays. Device counters
+    (``add_valid``): the valid culled-table
     entries the steps select and their tiles that keep a valid slot, an
     int64 pair on the card that a captured step adds into on every replay,
     read once by ``records`` (which reports the second as ``empty_tiles``,

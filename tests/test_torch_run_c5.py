@@ -332,3 +332,55 @@ def test_cuda_config5_trains_through_the_culled_kernels(c5_knot_set,
     assert all(math.isfinite(x) for x in res["loss_history"])
     assert math.isfinite(res["trained"]) and res["n_final"] > 0
     assert all(n > 0 for n in launched()), launched()
+
+
+@pytest.mark.cuda
+def test_cuda_config5_merges_across_a_boundary(c5_knot_set, tmp_path,
+                                               monkeypatch):
+    """Config 5 with the recipe's merge (``--merge-cell 0.04``) for 2 x 100
+    steps, the tracer on: the boundary at 51,200 spheres merged
+    (``density.merged`` > 0, the counters balanced), the next stage's
+    table holds fewer rows (its bucket of the merged count), both
+    captures naming their stage and rows, and K6 and K7 launched in that
+    stage."""
+    from burn_raymarching_tpu_torch.ops.cuda import culled_shade_kernel as k6
+    from burn_raymarching_tpu_torch.ops.cuda import tile_select_kernel as k7
+    from burn_raymarching_tpu_torch.train.loop import Trainer
+    from burn_raymarching_tpu_torch.utils import bucket_size
+    from burn_raymarching_tpu_torch.utils.profiling import TRACER
+
+    fns = (k6.launch_ctail_fwd, k6.launch_ctail_bwd, k7.launch_tile_select)
+    after_boundary = {}
+    inner = Trainer._density_control
+
+    def density(self, *args, **kwargs):
+        out = inner(self, *args, **kwargs)
+        after_boundary["launched"] = _counted(fns)
+        return out
+
+    monkeypatch.setattr(Trainer, "_density_control", density)
+    TRACER.reset()
+    TRACER.enable()
+    try:
+        res = run_c5.main(["--out", str(tmp_path), "--data", c5_knot_set,
+                           "--stages", "2", "--steps", "100",
+                           "--merge-cell", "0.04", "--skip-ceiling"])
+        rec = TRACER.records()
+    finally:
+        TRACER.disable()
+        TRACER.reset()
+    (ev,) = [e for e in res["events"] if e["kind"] == "density"]
+    c = rec["counters"]
+    assert ev["n_before"] == c["density.in"] == 51200
+    assert ev["merged"] == c["density.merged"] > 0
+    assert ev["n_after"] == c["density.out"] == (
+        c["density.in"] - c["density.merged"] - c["density.pruned"]
+        + c["density.split"])
+    caps = [s["attrs"] for s in rec["spans"]
+            if s["name"] == "trainer.capture"]
+    rows = bucket_size(ev["n_after"])
+    assert [(a["stage"], a["rows"]) for a in caps] == [(0, 65536), (1, rows)]
+    assert rows < 65536
+    assert all(n > 0 for n in after_boundary["launched"]()), fns
+    assert all(math.isfinite(x) for x in res["loss_history"])
+

@@ -5,13 +5,15 @@ frame its five children. The ``cuda`` tests hold a captured step's phase
 map to the device events of its replays in a profiler trace, and show that
 a graph captured with the tracer off holds none of its nodes."""
 
+import dataclasses
 import json
 import os
 
+import numpy as np
 import pytest
 import torch
 
-from burn_raymarching_tpu_torch.config import TrainConfig
+from burn_raymarching_tpu_torch.config import DensityConfig, TrainConfig
 from burn_raymarching_tpu_torch.utils import profiling
 from burn_raymarching_tpu_torch.utils.profiling import TRACER
 
@@ -20,6 +22,7 @@ SCENE = os.path.join(ROOT, "runs", "c4_headline", "scene_c5.json")
 TRAINER_SPANS = ("trainer.run", "trainer.init", "trainer.stage",
                  "trainer.cluster_tables", "trainer.loss_read",
                  "trainer.preview", "trainer.density", "trainer.export")
+DENSITY_SPANS = ("density.read", "density.host", "density.upload")
 STEP_PHASES = ("step.sample", "step.select", "step.march", "step.tail",
                "step.loss", "step.backward", "step.adam")
 
@@ -163,13 +166,143 @@ def test_a_two_stage_cpu_job_gives_the_trainer_span_tree(tmp_path, tracer):
             assert by[s["parent"]]["name"] == "trainer.stage"
     assert {n for n in names if n.startswith("step.")} == set(
         STEP_PHASES) - {"step.march"}     # dense, plain march in the tail
-    assert rec["counters"] == {"jobs": 1, "stages": 2, "steps": 8}
+    density = {k: v for k, v in rec["counters"].items()
+               if k.startswith("density.")}
+    assert {k: v for k, v in rec["counters"].items()
+            if k not in density} == {"jobs": 1, "stages": 2, "steps": 8}
+    assert sorted(density) == ["density.in", "density.merged", "density.out",
+                               "density.pruned", "density.split"]
+    (dens,) = [s for s in spans if s["name"] == "trainer.density"]
+    assert [s["name"] for s in spans if s["parent"] == dens["id"]] == list(
+        DENSITY_SPANS)
     own = profiling.self_seconds(spans)
     assert sum(own.values()) == pytest.approx(root["t1"] - root["t0"],
                                               rel=1e-9, abs=1e-12)
     out = tmp_path / "spans.json"
     tracer.dump(str(out))
     assert json.loads(out.read_text())["counters"]["steps"] == 8
+
+
+def _knot_merge_cfg(tmp_path, stages: int, **kw) -> TrainConfig:
+    """A tiny config-5-shaped job: 512 spheres seeded ~25 deep on a
+    20-sphere knot's points, budget 512, the 0.04 merge at each boundary
+    (it leaves ~235 spheres in 256 slots, under the budget)."""
+    from benchmark.reference.generate import write_dataset
+
+    data = str(tmp_path / "data")
+    write_dataset(data, {"scene": "knot", "views": 2, "size": 32, "gt_n": 20,
+                         "gt_k": 128.0, "gt_sharp": 40.0}, "cpu")
+    return TrainConfig(
+        cameras_json=os.path.join(data, "cameras.json"),
+        init_points=os.path.join(data, "points.json"), init_layout="cloud",
+        init_n=512, init_points_jitter=0.02, width=32, height=32,
+        stages=stages, steps_per_stage=4, batch_size=1024, use_culling=True,
+        cull_tile=512, cull_budget=512, sample_mode="tile",
+        dataset_order="morton", warm_start=True, cluster_repulsion=True,
+        density=dataclasses.replace(DensityConfig(), merge_cell=0.04),
+        checkpoint_dir="", steps_dir=str(tmp_path / "steps"),
+        scene_json=str(tmp_path / "scene.json"), **kw)
+
+
+def test_density_counters_balance_over_the_boundaries(tmp_path, tracer):
+    """A 3-stage culled CPU job with the merge: the density counters sum
+    what each boundary's event records, ``density.in`` less the merged and
+    the pruned plus the split is ``density.out``, and each boundary's
+    ``trainer.density`` holds its three children."""
+    from burn_raymarching_tpu_torch.train.loop import Trainer, build_dataset
+
+    cfg = _knot_merge_cfg(tmp_path, 3)
+    tr = Trainer(cfg, build_dataset(cfg, device="cpu"), log=lambda m: None)
+    tr.run()
+    c = tracer.records()["counters"]
+    events = [e for e in tr.events if e["kind"] == "density"]
+    assert len(events) == 2
+    assert c["density.in"] == sum(e["n_before"] for e in events)
+    assert c["density.out"] == sum(e["n_after"] for e in events)
+    assert c["density.merged"] == sum(e["merged"] for e in events) > 0
+    assert c["density.split"] == sum(e["split"] for e in events)
+    assert (c["density.in"] - c["density.merged"] - c["density.pruned"]
+            + c["density.split"]) == c["density.out"]
+    spans = tracer.records()["spans"]
+    for dens in (s for s in spans if s["name"] == "trainer.density"):
+        assert [s["name"] for s in spans
+                if s["parent"] == dens["id"]] == list(DENSITY_SPANS)
+
+
+class _ReplayedOnHost:
+    """Stands in for a captured graph on the CPU: a replay runs the
+    runner's steps one at a time."""
+
+    def __init__(self, runner):
+        self.runner = runner
+
+    def replay(self):
+        for _ in range(self.runner.unroll):
+            self.runner._one(None)
+
+
+def test_the_capture_names_its_stage_and_rows(tmp_path, tracer,
+                                              monkeypatch):
+    """``trainer.capture`` carries the stage and the table's rows: across
+    the merge the job's two captures name both widths, 512 rows, then the
+    256 that are fewer than the budget. (The CPU has no graphs: the
+    capture's recording is stood in for by plain steps under
+    ``TRACER.capture``.)"""
+    from burn_raymarching_tpu_torch.train.chunk import ChunkRunner
+    from burn_raymarching_tpu_torch.train.loop import Trainer, build_dataset
+
+    def record(self, first):
+        with TRACER.capture(None, nodes=dict) as self.capture_id:
+            self._one(None)
+        self.graph = _ReplayedOnHost(self)
+
+    monkeypatch.setattr(ChunkRunner, "_record", record)
+    monkeypatch.setattr(Trainer, "_replays_graphs", lambda self: True)
+    cfg = _knot_merge_cfg(tmp_path, 2)
+    Trainer(cfg, build_dataset(cfg, device="cpu"), log=lambda m: None).run()
+    caps = [s["attrs"] for s in tracer.records()["spans"]
+            if s["name"] == "trainer.capture"]
+    assert [(a["stage"], a["rows"]) for a in caps] == [(0, 512), (1, 256)]
+    assert [a["capture"] for a in caps] == [
+        c["id"] for c in tracer.records()["captures"]]
+
+
+def test_density_control_runs_the_same_operators_traced(tmp_path):
+    """The density spans and counters add no tensor operator: a boundary
+    dispatches the same operators with the tracer on as off."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from burn_raymarching_tpu_torch.models.scene import pad_params
+    from burn_raymarching_tpu_torch.train.loop import Trainer, build_dataset
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    cfg = _knot_merge_cfg(tmp_path, 2)
+    tr = Trainer(cfg, build_dataset(cfg, device="cpu"), log=lambda m: None)
+    init = tr._init_params()
+    padded, mask = pad_params(init, 512)
+    centers = init.centers.detach().numpy()
+    seen = {}
+    for on in (False, True):
+        TRACER.reset()
+        if on:
+            TRACER.enable()
+        try:
+            with Ops() as ops:
+                out = tr._density_control(padded, mask, init.n, centers, 0,
+                                          np.random.default_rng(0))
+            seen[on] = (ops.seen, out.n)
+        finally:
+            TRACER.disable()
+            TRACER.reset()
+    assert seen[True] == seen[False]
 
 
 def test_the_culled_step_counts_its_tiles_and_valid_entries(tmp_path,
